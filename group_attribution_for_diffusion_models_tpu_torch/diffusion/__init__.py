@@ -1,0 +1,11 @@
+from .sampling import make_sampler, sample_loop  # noqa: F401
+from .schedulers import (  # noqa: F401
+    ScheduleState,
+    add_noise,
+    ddim_step,
+    ddpm_step,
+    inference_timesteps,
+    make_betas,
+    make_schedule,
+    pred_original_sample,
+)

@@ -1,0 +1,173 @@
+"""U-Net building blocks (torch.nn, NCHW): the unconditional subset.
+
+Port of the JAX package's ``models/layers.py``. Module and parameter names
+follow the diffusers v0.24 layout (``norm1``, ``conv1``, ``time_emb_proj``,
+``to_q``, ``to_out.0``, ...) so a diffusers UNet2DModel state dict loads
+as it is. GroupNorm(+SiLU) and attention go through ``ops``: the CUDA
+kernels on the card, their plain versions on the CPU. Convolutions and the
+q/k/v/out projections are plain ``F.conv2d``/``F.linear``, as the JAX package
+leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+from ..ops.group_norm import group_norm_silu
+
+
+def sinusoidal_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = False,
+    freq_shift: float = 1.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Transformer sinusoidal timestep embedding (diffusers
+    get_timestep_embedding, including the downscale_freq_shift denominator)."""
+    half_dim = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half_dim, dtype=torch.float32, device=timesteps.device
+    )
+    exponent = exponent / (half_dim - freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half_dim:], emb[:, :half_dim]], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class LoRADense(nn.Linear):
+    """Linear layer; the LoRA side branch of the JAX module comes with the
+    text-to-image slice."""
+
+
+class Conv1x1(nn.Conv2d):
+    """1x1 convolution (the JAX module's lowering knobs do not apply here)."""
+
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True):
+        super().__init__(in_channels, out_channels, 1, bias=bias)
+
+
+class TimestepEmbedding(nn.Module):
+    """Two-layer MLP lifting the sinusoidal embedding to time_embed_dim."""
+
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, embed_dim)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, temb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(temb)))
+
+
+class GroupNormSiLU(nn.Module):
+    """GroupNorm with an optional fused SiLU (parameters as nn.GroupNorm:
+    weight, bias). Output in the input's dtype."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6,
+                 silu: bool = True):
+        super().__init__()
+        self.groups, self.eps, self.silu = groups, eps, silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(
+            x, self.weight, self.bias, groups=self.groups, eps=self.eps,
+            silu=self.silu,
+        )
+
+
+class ResnetBlock(nn.Module):
+    """GN-SiLU-Conv resnet block with additive time conditioning.
+
+    `hidden_channels` (conv1 out / conv2 in) is separate from `out_channels`
+    so structurally pruned specs keep the block interface.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
+                 hidden_channels: Optional[int] = None, groups: int = 32,
+                 eps: float = 1e-6, dropout: float = 0.0):
+        super().__init__()
+        hidden = hidden_channels or out_channels
+        self.norm1 = GroupNormSiLU(in_channels, groups, eps)
+        self.conv1 = nn.Conv2d(in_channels, hidden, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_channels, hidden)
+        self.norm2 = GroupNormSiLU(hidden, groups, eps)
+        self.dropout = nn.Dropout(dropout)
+        self.conv2 = nn.Conv2d(hidden, out_channels, 3, padding=1)
+        self.conv_shortcut = (
+            Conv1x1(in_channels, out_channels) if in_channels != out_channels else None
+        )
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self.dropout(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class SelfAttention2D(nn.Module):
+    """Spatial self-attention over HxW tokens (row-major) with a residual.
+
+    head_dim=None means a single head of full channel width (the diffusers
+    UNet2DModel attention_head_dim=None convention the CIFAR config uses).
+    """
+
+    def __init__(self, channels: int, head_dim: Optional[int] = None,
+                 groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.num_heads = 1 if head_dim is None else max(channels // head_dim, 1)
+        self.group_norm = GroupNormSiLU(channels, groups, eps, silu=False)
+        self.to_q = LoRADense(channels, channels)
+        self.to_k = LoRADense(channels, channels)
+        self.to_v = LoRADense(channels, channels)
+        self.to_out = nn.ModuleList([LoRADense(channels, channels)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        heads = self.num_heads
+        y = self.group_norm(x).reshape(b, c, h * w).transpose(1, 2)  # (B, HW, C)
+        q = self.to_q(y).reshape(b, h * w, heads, c // heads)
+        k = self.to_k(y).reshape(b, h * w, heads, c // heads)
+        v = self.to_v(y).reshape(b, h * w, heads, c // heads)
+        y = dot_product_attention(q, k, v).reshape(b, h * w, c)
+        y = self.to_out[0](y)
+        return x + y.transpose(1, 2).reshape(b, c, h, w)
+
+
+class Downsample(nn.Module):
+    """Stride-2 conv downsample; padding=0 pads diffusers' asymmetric (0,1)."""
+
+    def __init__(self, channels: int, out_channels: int, padding: int = 0):
+        super().__init__()
+        self.padding = padding
+        self.conv = nn.Conv2d(channels, out_channels, 3, stride=2, padding=padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.padding == 0:
+            x = F.pad(x, (0, 1, 0, 1))
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour 2x upsample followed by a 3x3 conv."""
+
+    def __init__(self, channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

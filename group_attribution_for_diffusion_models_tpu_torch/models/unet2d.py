@@ -1,0 +1,160 @@
+"""UNet2D noise-prediction model (torch.nn, NCHW), unconditional specs.
+
+Port of the JAX package's ``models/unet2d.py`` for the unconditional
+UNet2DModel configs (CIFAR, MNIST and the synthetic specs); cross-attention
+blocks and remat come with later slices. The skip wiring mirrors diffusers:
+push after conv_in, after every resnet(+attention) and after every
+downsample; up-blocks pop in reverse and concatenate [h, skip] on channels.
+Submodule names are the diffusers state-dict keys (``down_blocks.I.resnets.J``,
+``mid_block.attentions.0``, ``up_blocks.I.upsamplers.0.conv``, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config.registry import UNetSpec
+from .layers import (
+    Downsample,
+    GroupNormSiLU,
+    ResnetBlock,
+    SelfAttention2D,
+    TimestepEmbedding,
+    Upsample,
+    sinusoidal_embedding,
+)
+
+_DOWN_TYPES = {"DownBlock2D", "AttnDownBlock2D"}
+_UP_TYPES = {"UpBlock2D", "AttnUpBlock2D"}
+
+
+class UNet2D(nn.Module):
+    """Noise-prediction U-Net. Input/output NCHW; timesteps shape (B,).
+
+    The forward runs in the dtype of the parameters (``model.to(dtype)``)
+    and returns float32, like the JAX model's ``dtype`` field.
+    """
+
+    def __init__(self, spec: UNetSpec):
+        super().__init__()
+        if spec.conditional:
+            raise NotImplementedError(
+                "cross-attention U-Nets are not ported yet (unconditional specs only)"
+            )
+        self.spec = spec
+        boc = spec.block_out_channels
+        groups, eps = spec.norm_num_groups, spec.norm_eps
+        temb_ch = boc[0] * 4
+
+        def hidden(path: str):
+            if spec.pruned_channels is None:
+                return None
+            return spec.pruned_channels.get(path)
+
+        def resnet(path: str, cin: int, cout: int) -> ResnetBlock:
+            return ResnetBlock(cin, cout, temb_ch, hidden(path), groups, eps, spec.dropout)
+
+        def attention(ch: int) -> SelfAttention2D:
+            return SelfAttention2D(ch, spec.attention_head_dim, groups, eps)
+
+        self.conv_in = nn.Conv2d(spec.in_channels, boc[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(boc[0], temb_ch)
+
+        skip_ch = [boc[0]]
+        ch = boc[0]
+        self.down_blocks = nn.ModuleList()
+        for i, block_type in enumerate(spec.down_block_types):
+            if block_type not in _DOWN_TYPES:
+                raise ValueError(f"unknown down block {block_type!r}")
+            out_ch = boc[i]
+            block = nn.Module()
+            block.resnets = nn.ModuleList()
+            block.attentions = nn.ModuleList()
+            for j in range(spec.layers_per_block):
+                block.resnets.append(resnet(f"down_{i}_res_{j}", ch, out_ch))
+                ch = out_ch
+                if block_type == "AttnDownBlock2D":
+                    block.attentions.append(attention(ch))
+                skip_ch.append(ch)
+            if i < len(spec.down_block_types) - 1:
+                block.downsamplers = nn.ModuleList(
+                    [Downsample(ch, ch, padding=spec.downsample_padding)]
+                )
+                skip_ch.append(ch)
+            self.down_blocks.append(block)
+
+        self.mid_block = nn.Module()
+        self.mid_block.resnets = nn.ModuleList(
+            [resnet("mid_res_0", ch, boc[-1]), resnet("mid_res_1", boc[-1], boc[-1])]
+        )
+        ch = boc[-1]
+        self.mid_block.attentions = nn.ModuleList(
+            [attention(ch)] if spec.add_attention else []
+        )
+
+        self.up_blocks = nn.ModuleList()
+        for i, block_type in enumerate(spec.up_block_types):
+            if block_type not in _UP_TYPES:
+                raise ValueError(f"unknown up block {block_type!r}")
+            out_ch = boc[::-1][i]
+            block = nn.Module()
+            block.resnets = nn.ModuleList()
+            block.attentions = nn.ModuleList()
+            for j in range(spec.layers_per_block + 1):
+                block.resnets.append(resnet(f"up_{i}_res_{j}", ch + skip_ch.pop(), out_ch))
+                ch = out_ch
+                if block_type == "AttnUpBlock2D":
+                    block.attentions.append(attention(ch))
+            if i < len(spec.up_block_types) - 1:
+                block.upsamplers = nn.ModuleList([Upsample(ch, ch)])
+            self.up_blocks.append(block)
+
+        self.conv_norm_out = GroupNormSiLU(ch, groups, eps)
+        self.conv_out = nn.Conv2d(ch, spec.out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        dtype = self.conv_in.weight.dtype
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(x.shape[0])
+        temb = sinusoidal_embedding(
+            timesteps, spec.block_out_channels[0],
+            flip_sin_to_cos=spec.flip_sin_to_cos, freq_shift=spec.freq_shift,
+        )
+        temb = self.time_embedding(temb.to(dtype))
+
+        h = self.conv_in(x.to(dtype))
+        skips = [h]
+        for block in self.down_blocks:
+            for j, res in enumerate(block.resnets):
+                h = res(h, temb)
+                if len(block.attentions):
+                    h = block.attentions[j](h)
+                skips.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                skips.append(h)
+
+        h = self.mid_block.resnets[0](h, temb)
+        if len(self.mid_block.attentions):
+            h = self.mid_block.attentions[0](h)
+        h = self.mid_block.resnets[1](h, temb)
+
+        for block in self.up_blocks:
+            for j, res in enumerate(block.resnets):
+                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                if len(block.attentions):
+                    h = block.attentions[j](h)
+            if hasattr(block, "upsamplers"):
+                h = block.upsamplers[0](h)
+
+        return self.conv_out(self.conv_norm_out(h)).float()
+
+
+def build_unet(spec: UNetSpec, seed: int) -> UNet2D:
+    """A UNet2D with torch's default initialisation drawn from `seed`, without
+    touching the caller's global random state."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return UNet2D(spec)

@@ -1,0 +1,19 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(name: str = "cuda") -> torch.device:
+    """torch.device for `name`. Asking for CUDA where there is none raises:
+    entry points never drop to the CPU unless the caller asks for it."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but CUDA is not available "
+            "(pass --device cpu to run on the CPU)"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return device
