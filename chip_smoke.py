@@ -15,8 +15,9 @@ Phases (one line each; any failure raises and exits non-zero):
 3. forward: the full-width CIFAR UNet2D (random weights from a seed) on the
    card against the same model on the CPU, batch 4, float32.
 4. main path: a seeded random-init full-width CIFAR checkpoint sampled
-   through ``cli.generate_samples.main`` (64 images x 100 DDIM steps),
-   with the kernels' launch counters reset just before and read just after.
+   through ``cli.generate_samples.main`` (2 batches of 64 images x 100 DDIM
+   steps; the second batch's time is the warm one), with the kernels'
+   launch counters reset just before and read just after.
 5. reference: 5 DDIM steps of the same model on the card against the CPU
    from the same initial noise.
 
@@ -50,7 +51,7 @@ ATTN_SHAPES = [  # (B, Sq, Skv, H, D)
     (2, 130, 77, 2, 40),     # ragged queries and keys, ragged head dim
 ]
 GN_SHAPES = [(64, 128, 32, 32), (64, 256, 4, 4)]  # CIFAR levels 0 and 3, G=32
-STEPS, N_SAMPLES = 100, 64
+STEPS, BATCH, N_BATCHES = 100, 64, 2
 
 
 def log(msg: str) -> None:
@@ -229,7 +230,7 @@ def main() -> int:
         t0 = time.perf_counter()
         summary = generate_samples.main([
             "--dataset", "cifar", "--load", model_dir, "--sample_outdir", out,
-            "--n_samples", str(N_SAMPLES), "--batch_size", str(N_SAMPLES),
+            "--n_samples", str(BATCH * N_BATCHES), "--batch_size", str(BATCH),
             "--num_inference_steps", str(STEPS), "--device", "cuda",
         ])
         torch.cuda.synchronize()
@@ -237,28 +238,31 @@ def main() -> int:
         launches = {"attention": ops.attention_kernel.launches,
                     "group_norm": ops.group_norm_kernel.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        sec = summary["batch_seconds"][0]
-        log(f"[main] generate_samples cifar {N_SAMPLES} images x {STEPS} DDIM steps f32 on "
-            f"{card}: {sec:.3f} s/batch, {N_SAMPLES / sec:.2f} images/s, call {wall:.3f} s, "
+        secs = [summary["batch_seconds"][b] for b in range(N_BATCHES)]
+        log(f"[main] generate_samples cifar {N_BATCHES} batches of {BATCH} images x {STEPS} "
+            f"DDIM steps f32 on {card}: s/batch {', '.join(f'{s:.3f}' for s in secs)} "
+            f"(last: {BATCH / secs[-1]:.2f} images/s), call {wall:.3f} s, "
             f"peak {peak_gib:.2f} GiB, launches {launches}")
-        if launches != {"attention": 6 * STEPS, "group_norm": 51 * STEPS}:
+        forwards = N_BATCHES * STEPS
+        if launches != {"attention": 6 * forwards, "group_norm": 51 * forwards}:
             raise AssertionError(f"main path launches {launches}")
         pngs = sorted(n for n in os.listdir(out) if n.endswith(".png"))
         imgs = np.stack([np.asarray(Image.open(os.path.join(out, n))) for n in pngs])
         log(f"[main] {len(pngs)} PNGs {imgs.shape[1:]} {imgs.dtype}, "
             f"mean {imgs.mean():.2f}, std {imgs.std():.2f}")
-        if len(pngs) != N_SAMPLES or imgs.shape[1:] != (32, 32, 3) or imgs.std() == 0:
-            raise AssertionError("generate_samples did not write 64 distinct 32x32 RGB PNGs")
+        if (len(pngs) != BATCH * N_BATCHES or imgs.shape[1:] != (32, 32, 3)
+                or not np.isfinite(imgs).all() or imgs.std() == 0):
+            raise AssertionError("generate_samples did not write the distinct 32x32 RGB PNGs")
 
     # Reference: the sampler on the card against the CPU from the same noise.
     model.eval()
     cfg = get_config("cifar")
     noise = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32))
     cpu_imgs = make_sampler(model, cfg.scheduler, (2, 3, 32, 32), device="cpu",
-                            num_inference_steps=5, kind="ddim")(init_noise=noise)
+                            num_inference_steps=5)(init_noise=noise)
     model.to(dev)
     gpu_imgs = make_sampler(model, cfg.scheduler, (2, 3, 32, 32), device=dev,
-                            num_inference_steps=5, kind="ddim")(init_noise=noise).cpu()
+                            num_inference_steps=5)(init_noise=noise).cpu()
     err = (gpu_imgs - cpu_imgs).abs().max().item()
     log(f"[reference] 5 DDIM steps, batch 2, card vs CPU: max_abs_err={err:.3g} "
         f"(tol {SAMPLE_ATOL}), finite={bool(torch.isfinite(gpu_imgs).all())}")

@@ -85,7 +85,7 @@ def main(argv=None):
     shape = (batch, spec.in_channels, spec.sample_size, spec.sample_size)
     sampler = make_sampler(
         model, cfg.scheduler, shape, device=device,
-        num_inference_steps=args.num_inference_steps, kind="ddim",
+        num_inference_steps=args.num_inference_steps,
     )
 
     n_batches = -(-args.n_samples // batch)

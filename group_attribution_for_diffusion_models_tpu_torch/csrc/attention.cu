@@ -22,7 +22,8 @@
 // keep the 8 threads of a quarter-warp on distinct banks for any D % 8 == 0.
 // Keys >= Skv score -inf; query rows >= Sq read zeros and are not stored.
 // At D=256 the block needs 110 KB of dynamic shared memory, set through
-// cudaFuncAttributeMaxDynamicSharedMemorySize; two blocks fit on an SM.
+// cudaFuncAttributeMaxDynamicSharedMemorySize once per instantiation and
+// device (for the bucket's largest D); two blocks fit on an SM.
 // A wgmma/TMA version is later work.
 
 #include <cuda_bf16.h>
@@ -228,13 +229,21 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int Sq, int Skv, int D, const int64_t* st, float scale,
+                   int Sq, int Skv, int D, const int64_t* st, float scale, int device,
                    cudaStream_t stream) {
   auto kernel = attention_fwd_kernel<T, DMAX>;
+  // Devices (ids < 64) whose shared-memory limit for this instantiation is
+  // already raised. A race only sets the same attribute twice.
+  static uint64_t configured = 0;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (!(configured & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(float) * smem_floats(DMAX)));
+    if (err != cudaSuccess) return err;
+    configured |= bit;
+  }
   const size_t smem = sizeof(float) * smem_floats(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -245,11 +254,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int Sq, int Skv, int D, const int64_t* st, float scale,
+                     int Sq, int Skv, int D, const int64_t* st, float scale, int device,
                      cudaStream_t stream) {
-  if (D <= 64) return launch<T, 64>(q, k, v, o, B, H, Sq, Skv, D, st, scale, stream);
-  if (D <= 128) return launch<T, 128>(q, k, v, o, B, H, Sq, Skv, D, st, scale, stream);
-  return launch<T, 256>(q, k, v, o, B, H, Sq, Skv, D, st, scale, stream);
+  if (D <= 64) return launch<T, 64>(q, k, v, o, B, H, Sq, Skv, D, st, scale, device, stream);
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, o, B, H, Sq, Skv, D, st, scale, device, stream);
+  return launch<T, 256>(q, k, v, o, B, H, Sq, Skv, D, st, scale, device, stream);
 }
 
 }  // namespace
@@ -271,9 +281,10 @@ int gadm_attention_fwd(const void* q, const void* k, const void* v, void* o, int
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(q, k, v, o, B, H, Sq, Skv, D, strides, scale, s);
+  if (dtype == 0)
+    return dispatch<float>(q, k, v, o, B, H, Sq, Skv, D, strides, scale, device, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Sq, Skv, D, strides, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Sq, Skv, D, strides, scale, device, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,12 @@
-"""DDIM/DDPM sampling loops.
+"""DDIM sampling loop.
 
-Port of the JAX package's ``diffusion/sampling.py``. The JAX package scans
-the denoising loop inside one jit; here it is a Python loop of eager calls
-under ``torch.inference_mode``. Randomness comes from the caller: the
-initial noise is either passed in (`init_noise`, which lets tests feed both
-packages the same draw) or drawn from the caller's `torch.Generator`, as is
-the DDPM/eta>0 step noise.
-
-Outputs are float images in [0, 1], NCHW.
+Port of the JAX package's ``diffusion/sampling.py``, as far as its ported
+caller (``cli/generate_samples.py``) uses it: deterministic DDIM (eta=0)
+from an initial noise, post-processed to float images in [0, 1], NCHW. The
+JAX package scans the denoising loop inside one jit; here it is a Python
+loop of eager calls under ``torch.inference_mode``. The initial noise is
+either passed in (`init_noise`, which lets tests feed both packages the same
+draw) or drawn from the caller's `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -17,13 +16,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..config.registry import SchedulerSpec
-from .schedulers import (
-    ScheduleState,
-    ddim_step,
-    ddpm_step,
-    inference_timesteps,
-    make_schedule,
-)
+from .schedulers import ScheduleState, ddim_step, inference_timesteps, make_schedule
 
 
 def sample_loop(
@@ -36,23 +29,18 @@ def sample_loop(
     generator: Optional[torch.Generator] = None,
     init_noise: Optional[torch.Tensor] = None,
     num_inference_steps: int = 100,
-    eta: float = 0.0,
-    kind: Optional[str] = None,
-    postprocess: bool = True,
 ) -> torch.Tensor:
-    """Generate a batch of images of `shape` (B, C, H, W). `kind` defaults to
-    spec.kind. `model(x, t)` predicts the noise. With DDIM and eta=0 only the
-    initial noise is random, so the result is a function of it."""
-    kind = kind or spec.kind
-    needs_generator = kind != "ddim" or eta > 0
-    if (init_noise is None or needs_generator) and generator is None:
-        raise ValueError("sample_loop needs a generator for the noise it draws")
-
-    def draw() -> torch.Tensor:
-        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    """Generate a batch of images of `shape` (B, C, H, W) with DDIM, eta=0.
+    `model(x, t)` predicts the noise. Only the initial noise is random, so
+    the result is a function of it."""
+    if init_noise is None and generator is None:
+        raise ValueError("sample_loop needs init_noise or a generator to draw it")
 
     with torch.inference_mode():
-        x = draw() if init_noise is None else init_noise.to(device, torch.float32)
+        if init_noise is None:
+            x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        else:
+            x = init_noise.to(device, torch.float32)
         ts = inference_timesteps(
             spec.num_train_timesteps, num_inference_steps,
             spec.timestep_spacing, spec.steps_offset,
@@ -61,16 +49,10 @@ def sample_loop(
         for t, t_prev in zip(ts, ts[1:] + [-1]):
             t_b = torch.full((b,), t, dtype=torch.long, device=device)
             eps = model(x, t_b)
-            if kind == "ddim":
-                x = ddim_step(
-                    schedule, spec, eps, t_b,
-                    torch.full((b,), t_prev, dtype=torch.long, device=device),
-                    x, eta=eta, noise=draw() if eta > 0 else None,
-                )
-            else:
-                x = ddpm_step(schedule, spec, eps, t_b, x, draw())
-        if not postprocess:
-            return x
+            x = ddim_step(
+                schedule, spec, eps, t_b,
+                torch.full((b,), t_prev, dtype=torch.long, device=device), x,
+            )
         return torch.clamp(x / 2.0 + 0.5, 0.0, 1.0)
 
 
@@ -81,8 +63,6 @@ def make_sampler(
     *,
     device,
     num_inference_steps: int = 100,
-    eta: float = 0.0,
-    kind: Optional[str] = None,
 ):
     """Sampler factory: (generator=None, init_noise=None) -> images.
 
@@ -96,7 +76,6 @@ def make_sampler(
         return sample_loop(
             model, schedule, spec, shape, device=device, generator=generator,
             init_noise=init_noise, num_inference_steps=num_inference_steps,
-            eta=eta, kind=kind,
         )
 
     return sampler

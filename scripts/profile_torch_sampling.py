@@ -1,11 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of the port's CIFAR sampling step goes, on one GPU.
 
-Runs DDIM steps of the full-width CIFAR UNet2D (random weights from a seed)
-through the port's sampler under torch.profiler, and prints device time by
-kernel, grouped into the port's attention and GroupNorm kernels,
-convolutions, GEMMs and the rest, with the device's idle share of the
-profiled wall time. Run from the repository root:
+Samples the full-width CIFAR UNet2D (random weights from a seed) at batch
+64 in two ways:
+
+1. unprofiled: ``cli.generate_samples`` writes 2 batches x 100 DDIM steps
+   from a checkpoint of that model; the second (warm) batch gives s/batch
+   and ms/step;
+2. profiled: 10 DDIM steps through the port's sampler under torch.profiler,
+   tracing device activity only (no host-side op events, which would slow
+   the host), giving device time by kernel, grouped into the port's
+   attention and GroupNorm kernels, convolutions, GEMMs and the rest.
+
+The device's idle share is printed against both wall times: the profiled
+one, and the unprofiled ms/step. Run from the repository root:
 
     python3 scripts/profile_torch_sampling.py --dtype fp32
     python3 scripts/profile_torch_sampling.py --dtype bf16
@@ -17,9 +25,12 @@ import argparse
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+BATCH, TIMED_STEPS, TIMED_BATCHES, PROFILED_STEPS = 64, 100, 2, 10
 
 
 def group(name: str) -> str:
@@ -46,14 +57,14 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from group_attribution_for_diffusion_models_tpu_torch.cli import generate_samples
     from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
     from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
     from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import save_checkpoint
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
-    p.add_argument("--batch", type=int, default=64)
-    p.add_argument("--steps", type=int, default=10)
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -63,14 +74,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     cfg = get_config("cifar")
-    model = build_unet(cfg.unet, seed=0).to(device=dev, dtype=dtype).eval()
-    shape = (args.batch, 3, 32, 32)
-    sampler = make_sampler(model, cfg.scheduler, shape, device=dev,
-                           num_inference_steps=args.steps, kind="ddim")
+    model = build_unet(cfg.unet, seed=0).eval()
+    with tempfile.TemporaryDirectory(prefix="profile_sampling_") as tmp:
+        sd = model.state_dict()
+        save_checkpoint(os.path.join(tmp, "model"), 0, sd, sd, unet_spec=cfg.unet)
+        secs = generate_samples.main([
+            "--dataset", "cifar", "--load", os.path.join(tmp, "model"),
+            "--sample_outdir", os.path.join(tmp, "samples"), "--dtype", args.dtype,
+            "--n_samples", str(BATCH * TIMED_BATCHES), "--batch_size", str(BATCH),
+            "--num_inference_steps", str(TIMED_STEPS),
+        ])["batch_seconds"]
+    step_ms = secs[TIMED_BATCHES - 1] / TIMED_STEPS * 1e3
+
+    model.to(device=dev, dtype=dtype)
+    sampler = make_sampler(model, cfg.scheduler, (BATCH, 3, 32, 32), device=dev,
+                           num_inference_steps=PROFILED_STEPS)
     gen = torch.Generator(device=dev)
     sampler(generator=gen.manual_seed(0))  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sampler(generator=gen.manual_seed(1))
         torch.cuda.synchronize()
@@ -84,6 +106,8 @@ def main() -> int:
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.key] = (dev_us / 1e3, ev.count)
     busy = sum(ms for ms, _ in by_kernel.values())
+    if busy <= 0:
+        raise SystemExit("the profiler recorded no device time")
     groups = {}
     for name, (ms, n) in by_kernel.items():
         g = groups.setdefault(group(name), [0.0, 0])
@@ -93,10 +117,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(f"{card}; torch {torch.__version__}; CIFAR UNet2D {args.dtype}, batch "
-          f"{args.batch}, {args.steps} DDIM steps")
-    print(f"wall {wall_ms:.2f} ms ({wall_ms / args.steps:.2f} ms/step), device busy "
-          f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    busy_step = busy / PROFILED_STEPS
+    print(f"{card}; torch {torch.__version__}; CIFAR UNet2D {args.dtype}, batch {BATCH}")
+    print(f"unprofiled generate_samples, {TIMED_BATCHES} batches x {TIMED_STEPS} DDIM steps: "
+          f"s/batch {', '.join(f'{s:.3f}' for s in secs.values())}; last batch "
+          f"{step_ms:.2f} ms/step, idle share {max(0.0, 1 - busy_step / step_ms):.3f} "
+          f"(against the profiled device busy time)")
+    print(f"profiled, {PROFILED_STEPS} DDIM steps: wall {wall_ms:.2f} ms "
+          f"({wall_ms / PROFILED_STEPS:.2f} ms/step), device busy {busy:.2f} ms "
+          f"({busy_step:.2f} ms/step), idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:26s} {ms:9.3f} ms {100 * ms / busy:5.1f}%  launches {n}")
     print("top kernels:")
