@@ -10,20 +10,30 @@ Phases (one line each; any failure raises and exits non-zero):
 1. card: name and power limit from nvidia-smi; build every CUDA kernel from
    the sources in ``group_attribution_for_diffusion_models_tpu_torch/csrc``.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the CIFAR sampling shapes and a few others, in float32 and bfloat16, with
-   kernel, plain and library (SDPA, F.group_norm + F.silu) times.
+   the CIFAR shapes and a few others, in float32 and bfloat16, with kernel,
+   plain and library times (SDPA and F.group_norm + F.silu, forward and
+   autograd backward).
 3. forward: the full-width CIFAR UNet2D (random weights from a seed) on the
    card against the same model on the CPU, batch 4, float32.
-4. main path: a seeded random-init full-width CIFAR checkpoint sampled
-   through ``cli.generate_samples.main`` (2 batches of 64 images x 100 DDIM
-   steps; the second batch's time is the warm one), with the kernels'
-   launch counters reset just before and read just after.
-5. reference: 5 DDIM steps of the same model on the card against the CPU
+4. train-step: one `make_train_step` of that model on the card against the
+   CPU from the same weights, images, timesteps and noise (batch 8, float32,
+   TF32 off): loss, gradient norm and gradients; and two card runs of the
+   step agree bit for bit.
+5. main path, sampling: a seeded random-init full-width CIFAR checkpoint
+   sampled through ``cli.generate_samples.main`` (2 batches of 64 images x
+   100 DDIM steps; the second batch's time is the warm one).
+6. reference: 5 DDIM steps of the same model on the card against the CPU
    from the same initial noise.
+7. main path, training: ``cli.train_ensemble.main`` on a seeded stand-in for
+   the CIFAR-10 training set (50,000 uint8 images in the
+   ``cifar-10-batches-py`` layout), full-width CIFAR, 8 shapley members at
+   batch 64 with eval loss and 16 DDIM samples each: 2 steps to warm up,
+   then 20 steps timed.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and prints
-no result.
+Each main path runs with the kernels' launch counters reset just before and
+read just after, and asserts the counts the code implies. The last two lines
+are the kernels' JSON record and ``{"ok": true, "device": {...}}``. Without
+CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -42,8 +53,23 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # (atol, rtol) of kernel against plain version; see tests/test_torch_kernels_cuda.py.
 TOL = {"float32": (5e-5, 1e-5), "bfloat16": (1e-2, 2**-7)}
+# dgamma/dbeta: f32 sums over B*HW terms in another order, |d| <= atol + rtol max|ref|.
+SUM_TOL = (5e-5, 1e-5)
 CIFAR_FWD_ATOL = 5e-4  # 22 resnets of f32 convs summed in other orders
 SAMPLE_ATOL = 2e-3  # images in [0, 1] after 5 DDIM steps of that forward
+# Train step, card vs CPU: f32 convolutions (TF32 off) summed in other orders
+# through the forward and the backward. Relative error of the loss and of the
+# global gradient norm, and max |g_card - g_cpu| / max |g_cpu|. A cut graph
+# or a wrong backward kernel is off by O(1).
+TRAIN_STEP_RTOL = 1e-3
+TRAIN_STEP_BATCH = 8
+TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_WARM_STEPS, TRAIN_BATCH = 8, 20, 2, 64
+# train_ensemble caps the batch at the smallest subset (as the JAX CLI does).
+# Shapley seeds 22..29 keep 65 to 49,999 of the 50,000 images, so the
+# members train at batch 64; seed 7, for one, keeps 3.
+TRAIN_SEED_START = 22
+TRAIN_SAMPLES, TRAIN_SAMPLE_STEPS = 16, 20
+CIFAR_TRAIN_IMAGES = 50_000  # the CIFAR-10 training set's size, 5 batches
 ATTN_SHAPES = [  # (B, Sq, Skv, H, D)
     (64, 256, 256, 1, 256),  # CIFAR down_1 / up_2 at 16x16, sampling batch 64
     (64, 16, 16, 1, 256),    # CIFAR mid block at 4x4
@@ -89,10 +115,56 @@ def compare(got, want, dtype: str):
     return diff.max().item(), ok
 
 
+def compare_sum(got, want):
+    """(max abs error, within SUM_TOL) for a reduction over many terms."""
+    atol, rtol = SUM_TOL
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err <= atol + rtol * want.float().abs().max().item()
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def write_cifar_standin(root: str, n: int, seed: int = 0) -> None:
+    """A seeded stand-in for CIFAR-10's python layout: <root>/cifar-10-batches-py/
+    data_batch_1..5, each a pickled {"data": (n/5, 3072) uint8, "labels": list}."""
+    import numpy as np
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    rng = np.random.default_rng(seed)
+    per = n // 5
+    for i in range(1, 6):
+        entry = {"data": rng.integers(0, 256, (per, 3072), dtype=np.uint8),
+                 "labels": rng.integers(0, 10, per).tolist()}
+        with open(os.path.join(base, f"data_batch_{i}"), "wb") as f:
+            pickle.dump(entry, f)
+
+
+def launch_counts(ops) -> dict:
+    return {"attention_fwd": ops.attention_kernel.launches,
+            "attention_bwd_dq": ops.attention_bwd_dq.launches,
+            "attention_bwd_dkv": ops.attention_bwd_dkv.launches,
+            "group_norm_fwd": ops.group_norm_kernel.launches,
+            "group_norm_bwd": ops.group_norm_bwd_kernel.launches}
+
+
+def reset_counts(ops) -> None:
+    for fn in (ops.attention_kernel, ops.attention_bwd_dq, ops.attention_bwd_dkv,
+               ops.group_norm_kernel, ops.group_norm_bwd_kernel):
+        fn.launches = 0
+
+
+def unet_counts(forwards: int, backwards: int) -> dict:
+    """Launches of the CIFAR U-Net: 6 attention layers and 51 GroupNorms
+    (22 resnets x 2, 6 attention pre-norms, conv_norm_out) per forward, and
+    one backward launch of each per backward (two attention passes)."""
+    return {"attention_fwd": 6 * forwards, "attention_bwd_dq": 6 * backwards,
+            "attention_bwd_dkv": 6 * backwards, "group_norm_fwd": 51 * forwards,
+            "group_norm_bwd": 51 * backwards}
 
 
 def check_attention(torch, F, ops, dev):
@@ -166,6 +238,236 @@ def check_group_norm(torch, F, ops, dev):
     return rows
 
 
+def check_attention_bwd(torch, F, ops, dev):
+    """Both backward passes against their plain versions. Returns per-pass
+    rows {(shape, dtype): {"dq": {...}, "dkv": {...}}}. The least work of the
+    whole backward is 10*B*H*Sq*Skv*D FLOPs (S once, then P.V, dO.V^T, dS.K,
+    dS^T.Q, P^T.dO); of the dQ pass alone 6 (S, dO.V^T, dS.K, with delta =
+    rowsum(P * dP)), of the dK/dV pass alone 8. The JAX kernels' scheme does
+    16, these kernels 18."""
+    log("[kernels] attention_bwd least work 10*B*H*Sq*Skv*D FLOPs (the bound below); "
+        "the JAX kernels' scheme does 16*B*H*Sq*Skv*D, these kernels 18")
+    rows = {}
+    for (b, sq, skv, h, d) in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(3)
+            q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                           for s in (sq, skv, skv, sq))
+            dq, lse, delta = ops.attention_bwd_dq(q, k, v, do)
+            dk, dv = ops.attention_bwd_dkv(q, k, v, do, lse, delta)
+            want_dq, want_lse, want_delta = ops.attention_bwd_dq_plain(q, k, v, do)
+            want_dk, want_dv = ops.attention_bwd_dkv_plain(q, k, v, do, want_lse, want_delta)
+            torch.cuda.synchronize()
+            dq_cmp = [compare(dq, want_dq, name), compare(lse, want_lse, "float32"),
+                      compare(delta, want_delta, "float32")]
+            dkv_cmp = [compare(dk, want_dk, name), compare(dv, want_dv, name)]
+            again = ops.attention_bwd_kernel(q, k, v, do)
+            same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+            dq_ms = cuda_ms(torch, lambda: ops.attention_bwd_dq(q, k, v, do))
+            dkv_ms = cuda_ms(torch, lambda: ops.attention_bwd_dkv(q, k, v, do, lse, delta))
+            dq_plain = cuda_ms(torch, lambda: ops.attention_bwd_dq_plain(q, k, v, do))
+            dkv_plain = cuda_ms(
+                torch, lambda: ops.attention_bwd_dkv_plain(q, k, v, do, lse, delta))
+            plain_ms = cuda_ms(torch, lambda: ops.attention_bwd_plain(q, k, v, do))
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            gt = do.transpose(1, 2)
+            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), gt, retain_graph=True))
+            es, unit = q.element_size(), b * h * sq * skv * d
+            stats = 2 * b * h * sq * 4
+            whole, by = bound((3 * sq + 4 * skv) * b * h * d * es, 10.0 * unit, name)
+            dq_b, dq_by = bound((3 * sq + 2 * skv) * b * h * d * es + stats, 6.0 * unit, name)
+            dkv_b, dkv_by = bound((2 * sq + 4 * skv) * b * h * d * es + stats, 8.0 * unit, name)
+            err = max(e for e, _ in dq_cmp + dkv_cmp)
+            log(f"[kernels] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
+                f"max_abs_err dq={dq_cmp[0][0]:.3g} lse={dq_cmp[1][0]:.3g} "
+                f"delta={dq_cmp[2][0]:.3g} dk={dkv_cmp[0][0]:.3g} dv={dkv_cmp[1][0]:.3g} "
+                f"(tol {TOL[name]}), bitwise repeatable={same}; kernel_ms dq={dq_ms:.4f} "
+                f"dkv={dkv_ms:.4f} sum={dq_ms + dkv_ms:.4f}; plain_ms dq={dq_plain:.4f} "
+                f"dkv={dkv_plain:.4f} whole={plain_ms:.4f}; library_ms={lib_ms:.4f} "
+                f"(SDPA autograd backward); bound_ms whole={whole:.4f} ({by}) "
+                f"dq={dq_b:.4f} ({dq_by}) dkv={dkv_b:.4f} ({dkv_by})")
+            if not (all(ok for _, ok in dq_cmp + dkv_cmp) and same):
+                raise AssertionError(f"attention backward kernels disagree: {err}, "
+                                     f"repeatable={same}")
+            rows[(b, sq, skv, h, d, name)] = {
+                "dq": dict(max_abs_err=max(e for e, _ in dq_cmp), ms=dq_ms,
+                           plain_ms=dq_plain, library_ms=None, bound_ms=dq_b,
+                           bound_by=dq_by),
+                "dkv": dict(max_abs_err=max(e for e, _ in dkv_cmp), ms=dkv_ms,
+                            plain_ms=dkv_plain, library_ms=None, bound_ms=dkv_b,
+                            bound_by=dkv_by),
+            }
+    return rows
+
+
+def check_group_norm_bwd(torch, F, ops, dev):
+    """The GroupNorm(+SiLU) backward kernel against its plain version, with
+    the autograd backward of F.group_norm (+ F.silu) as the library time."""
+    rows = {}
+    for shape in GN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            for silu in (True, False):
+                g = torch.Generator(device=dev).manual_seed(4)
+                x = (torch.randn(shape, generator=g, device=dev) * 3 + 0.5).to(dtype)
+                gamma = torch.randn(shape[1], generator=g, device=dev) + 1
+                beta = torch.randn(shape[1], generator=g, device=dev)
+                dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+                _, mean, rstd = ops.group_norm_silu_plain(x, gamma, beta, 32, 1e-6, silu, dtype)
+                args = (x, dy, gamma, beta, mean, rstd, 32, silu)
+                got = ops.group_norm_bwd_kernel(*args)
+                want = ops.group_norm_silu_bwd_plain(*args)
+                torch.cuda.synchronize()
+                err, ok = compare(got[0], want[0], name)
+                sums = [compare_sum(a, w) for a, w in zip(got[1:], want[1:])]
+                same = all(torch.equal(a, w) for a, w in zip(got, ops.group_norm_bwd_kernel(*args)))
+                ms = cuda_ms(torch, lambda: ops.group_norm_bwd_kernel(*args))
+                plain_ms = cuda_ms(torch, lambda: ops.group_norm_silu_bwd_plain(*args))
+                xr = x.detach().requires_grad_(True)
+                gr, br = (t.to(dtype).detach().requires_grad_(True) for t in (gamma, beta))
+                y = F.group_norm(xr, 32, gr, br, 1e-6)
+                y = F.silu(y) if silu else y
+                lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                    y, (xr, gr, br), dy, retain_graph=True))
+                n = x.numel()
+                nbytes = 3 * n * x.element_size() + 4 * shape[1] * 4 + 2 * shape[0] * 32 * 4
+                bms, by = bound(nbytes, n * (21.0 if silu else 10.0), "float32")
+                log(f"[kernels] group_norm_bwd {tuple(shape)} G=32 silu={silu} {name}: "
+                    f"max_abs_err dx={err:.3g} (tol {TOL[name]}) dgamma={sums[0][0]:.3g} "
+                    f"dbeta={sums[1][0]:.3g} (tol {SUM_TOL} of max), bitwise repeatable={same}; "
+                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                    f"bound_ms={bms:.4f} ({by})")
+                if not (ok and all(o for _, o in sums) and same):
+                    raise AssertionError(f"group norm backward kernel disagrees: {err}, "
+                                         f"{sums}, repeatable={same}")
+                rows[(shape, name, silu)] = dict(
+                    max_abs_err=max(err, *(e for e, _ in sums)), ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    return rows
+
+
+def check_train_step(torch, np, spec, dev):
+    """One train step of the full-width CIFAR U-Net, card against CPU, from
+    the same weights and injected images/timesteps/noise; then a second card
+    step from the same state must repeat the first bit for bit."""
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_schedule
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D, build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.training import (
+        TrainState, make_optimizer, make_train_step)
+
+    sched = get_config("cifar").scheduler
+    weights = build_unet(spec, seed=1).state_dict()
+    rng = np.random.default_rng(5)
+    b = TRAIN_STEP_BATCH
+    images = torch.from_numpy(rng.uniform(-1, 1, (b, 3, 32, 32)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, sched.num_train_timesteps, b))
+    noise = torch.from_numpy(rng.standard_normal((b, 3, 32, 32)).astype(np.float32))
+
+    def run(device):
+        model = UNet2D(spec)
+        model.load_state_dict(weights)
+        tx = make_optimizer("adam", lr=1e-4, grad_clip_norm=1.0)
+        state = TrainState.create(model.to(device), tx)
+        step = make_train_step(tx, make_schedule(sched, device), sched)
+        metrics = step(state, images.to(device), timesteps=t.to(device), noise=noise.to(device))
+        grads = [p.grad.detach().cpu() for p in state.params]
+        params = [p.detach().cpu() for p in state.params]
+        return metrics["loss"].item(), metrics["grad_norm"].item(), grads, params
+
+    loss_c, norm_c, grads_c, _ = run("cpu")
+    loss_g, norm_g, grads_g, params_g = run(dev)
+    _, _, grads_g2, params_g2 = run(dev)
+    gmax = max(g.abs().max().item() for g in grads_c)
+    gerr = max((a - w).abs().max().item() for a, w in zip(grads_g, grads_c))
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    norm_rel = abs(norm_g - norm_c) / norm_c
+    same = (all(torch.equal(a, w) for a, w in zip(grads_g, grads_g2))
+            and all(torch.equal(a, w) for a, w in zip(params_g, params_g2)))
+    log(f"[train-step] CIFAR UNet2D batch {b} f32, card vs CPU: loss {loss_g:.6f} vs "
+        f"{loss_c:.6f} (rel {loss_rel:.3g}), grad norm {norm_g:.6f} vs {norm_c:.6f} "
+        f"(rel {norm_rel:.3g}), max |dg| {gerr:.3g} of max |g| {gmax:.3g} "
+        f"(rel {gerr / gmax:.3g}; tol {TRAIN_STEP_RTOL}); two card steps bitwise equal={same}")
+    if not (loss_rel <= TRAIN_STEP_RTOL and norm_rel <= TRAIN_STEP_RTOL
+            and gerr <= TRAIN_STEP_RTOL * gmax and same):
+        raise AssertionError("the train step on the card disagrees with the CPU")
+
+
+def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
+    """train_ensemble.main at full width: a warm-up run, then the timed run
+    with the launch counters reset just before and read just after."""
+    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import (
+        get_max_steps, load_checkpoint)
+    from group_attribution_for_diffusion_models_tpu_torch.utils.jsonl import read_records
+
+    def argv(outdir, steps):
+        return ["--dataset", "cifar", "--removal_dist", "shapley",
+                "--seed_start", str(TRAIN_SEED_START), "--num_seeds", str(TRAIN_MEMBERS),
+                "--batch_size", str(TRAIN_BATCH),
+                "--training_steps", str(steps), "--eval_loss",
+                "--n_samples", str(TRAIN_SAMPLES),
+                "--num_inference_steps", str(TRAIN_SAMPLE_STEPS),
+                "--outdir", outdir, "--device", "cuda"]
+
+    t0 = time.perf_counter()
+    train_ensemble.main(argv(os.path.join(root, "warm"), TRAIN_WARM_STEPS))
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    summary = train_ensemble.main(argv(os.path.join(root, "run"), TRAIN_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    m, steps = TRAIN_MEMBERS, TRAIN_STEPS
+    member_steps = m * steps
+    train_s = summary["train_seconds"]
+    if summary["batch_size"] != TRAIN_BATCH:
+        raise AssertionError(f"members trained at batch {summary['batch_size']}")
+    log(f"[train] train_ensemble cifar {m} members x {steps} steps at batch "
+        f"{summary['batch_size']} "
+        f"f32 on {card}: {train_s / steps:.4f} s per ensemble step, "
+        f"{member_steps / train_s:.3f} member-steps/s ({train_s:.3f} s of training; "
+        f"eval + {TRAIN_SAMPLES} samples x {TRAIN_SAMPLE_STEPS} steps per member "
+        f"{summary['sample_seconds']:.3f} s of sampling), call {wall:.3f} s "
+        f"(warm-up call of {TRAIN_WARM_STEPS} steps {warm_s:.3f} s), peak {peak_gib:.2f} GiB")
+    want = unet_counts(member_steps + m * (1 + TRAIN_SAMPLE_STEPS), member_steps)
+    log(f"[train] launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"training path launches {counts}, expected {want}")
+    losses = np.asarray(summary["losses"])
+    evals = np.asarray(summary["eval_losses"])
+    samples = summary["samples"]
+    log(f"[train] losses {losses.round(5).tolist()}; eval losses {evals.round(5).tolist()}; "
+        f"samples {samples.shape} in [{samples.min():.3f}, {samples.max():.3f}]")
+    if not (len(losses) == m and np.isfinite(losses).all() and len(evals) == m
+            and np.isfinite(evals).all() and np.isfinite(samples).all()
+            and samples.shape == (m, TRAIN_SAMPLES, 3, 32, 32)):
+        raise AssertionError("training path: non-finite or missing losses or samples")
+    dirs = summary["model_dirs"]
+    ckpts = [get_max_steps(d) for d in dirs]
+    rows = list(read_records(summary["db"]))
+    first = [load_checkpoint(d)["params"] for d in dirs[:2]]
+    subsets = [np.load(os.path.join(d, "remaining_idx.npy")) for d in dirs[:2]]
+    differ = max((first[0][k] - first[1][k]).abs().max().item() for k in first[0])
+    log(f"[train] checkpoints at step {ckpts}; {len(rows)} DB rows for seeds "
+        f"{sorted(r['removal_seed'] for r in rows)}; members 0 and 1 keep "
+        f"{len(subsets[0])} and {len(subsets[1])} images, their weights differ by up to "
+        f"{differ:.3g}")
+    seeds = list(range(TRAIN_SEED_START, TRAIN_SEED_START + m))
+    if not (ckpts == [steps] * m and len(rows) == m
+            and sorted(r["removal_seed"] for r in rows) == seeds):
+        raise AssertionError("training path: checkpoints or DB rows missing")
+    if np.array_equal(subsets[0], subsets[1]) or not differ > 0:
+        raise AssertionError("members on different subsets ended with equal weights")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -173,19 +475,32 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run(torch, tmp)
+
+
+def run(torch, tmp: str) -> int:
     import numpy as np
+
+    t_start = time.perf_counter()
+    # The port reads its dataset root once, on import: the stand-in goes first.
+    data_root = os.path.join(tmp, "datasets")
+    write_cifar_standin(data_root, CIFAR_TRAIN_IMAGES)
+    os.environ["GADM_DATASET_DIR"] = data_root
+    data_s = time.perf_counter() - t_start
+
     import torch.nn.functional as F
     from PIL import Image
 
     from group_attribution_for_diffusion_models_tpu_torch import ops
-    from group_attribution_for_diffusion_models_tpu_torch.cli import generate_samples
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        generate_samples, train_ensemble)
     from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
     from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
     from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
     from group_attribution_for_diffusion_models_tpu_torch.ops import _build
     from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import save_checkpoint
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -194,12 +509,18 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"[build] {len(libs)} libraries from csrc/ in {time.perf_counter() - t0:.1f} s: "
-        + ", ".join(os.path.basename(p) for p in libs.values()))
+        + ", ".join(os.path.basename(p) for p in libs.values())
+        + f"; CIFAR-10 stand-in ({CIFAR_TRAIN_IMAGES} images) written in {data_s:.1f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # As train_ensemble sets it: cuDNN's default backward algorithms may sum
+    # with atomics, and identical members must stay bit-identical.
+    torch.backends.cudnn.deterministic = True
     attn_rows = check_attention(torch, F, ops, dev)
+    attn_bwd_rows = check_attention_bwd(torch, F, ops, dev)
     gn_rows = check_group_norm(torch, F, ops, dev)
+    gn_bwd_rows = check_group_norm_bwd(torch, F, ops, dev)
 
     spec = get_config("cifar").unet
     model = build_unet(spec, seed=0).eval()
@@ -209,50 +530,48 @@ def main() -> int:
     with torch.no_grad():
         want = model(x, t)
         model.to(dev)
-        ops.attention_kernel.launches = ops.group_norm_kernel.launches = 0
+        reset_counts(ops)
         got = model(x.to(dev), t.to(dev)).cpu()
-    counts = (ops.attention_kernel.launches, ops.group_norm_kernel.launches)
+    counts = launch_counts(ops)
     err = (got - want).abs().max().item()
     log(f"[forward] CIFAR UNet2D ({sum(p.numel() for p in model.parameters())} params) "
         f"batch 4 f32, card vs CPU: max_abs_err={err:.3g} (tol {CIFAR_FWD_ATOL}), "
-        f"|out|max={want.abs().max().item():.3g}, launches attention={counts[0]} "
-        f"group_norm={counts[1]}")
-    if not (err <= CIFAR_FWD_ATOL and counts == (6, 51)):
+        f"|out|max={want.abs().max().item():.3g}, launches {counts}")
+    if not (err <= CIFAR_FWD_ATOL and counts == unet_counts(1, 0)):
         raise AssertionError("CIFAR forward on the card disagrees with the CPU")
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        model_dir, out = os.path.join(tmp, "model"), os.path.join(tmp, "samples")
-        sd = model.cpu().state_dict()
-        save_checkpoint(model_dir, 0, sd, sd, unet_spec=spec)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.attention_kernel.launches = ops.group_norm_kernel.launches = 0
-        t0 = time.perf_counter()
-        summary = generate_samples.main([
-            "--dataset", "cifar", "--load", model_dir, "--sample_outdir", out,
-            "--n_samples", str(BATCH * N_BATCHES), "--batch_size", str(BATCH),
-            "--num_inference_steps", str(STEPS), "--device", "cuda",
-        ])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"attention": ops.attention_kernel.launches,
-                    "group_norm": ops.group_norm_kernel.launches}
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        secs = [summary["batch_seconds"][b] for b in range(N_BATCHES)]
-        log(f"[main] generate_samples cifar {N_BATCHES} batches of {BATCH} images x {STEPS} "
-            f"DDIM steps f32 on {card}: s/batch {', '.join(f'{s:.3f}' for s in secs)} "
-            f"(last: {BATCH / secs[-1]:.2f} images/s), call {wall:.3f} s, "
-            f"peak {peak_gib:.2f} GiB, launches {launches}")
-        forwards = N_BATCHES * STEPS
-        if launches != {"attention": 6 * forwards, "group_norm": 51 * forwards}:
-            raise AssertionError(f"main path launches {launches}")
-        pngs = sorted(n for n in os.listdir(out) if n.endswith(".png"))
-        imgs = np.stack([np.asarray(Image.open(os.path.join(out, n))) for n in pngs])
-        log(f"[main] {len(pngs)} PNGs {imgs.shape[1:]} {imgs.dtype}, "
-            f"mean {imgs.mean():.2f}, std {imgs.std():.2f}")
-        if (len(pngs) != BATCH * N_BATCHES or imgs.shape[1:] != (32, 32, 3)
-                or not np.isfinite(imgs).all() or imgs.std() == 0):
-            raise AssertionError("generate_samples did not write the distinct 32x32 RGB PNGs")
+    check_train_step(torch, np, spec, dev)
+
+    model_dir, out = os.path.join(tmp, "model"), os.path.join(tmp, "samples")
+    sd = model.cpu().state_dict()
+    save_checkpoint(model_dir, 0, sd, sd, unet_spec=spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    summary = generate_samples.main([
+        "--dataset", "cifar", "--load", model_dir, "--sample_outdir", out,
+        "--n_samples", str(BATCH * N_BATCHES), "--batch_size", str(BATCH),
+        "--num_inference_steps", str(STEPS), "--device", "cuda",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sample_counts = launch_counts(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    secs = [summary["batch_seconds"][b] for b in range(N_BATCHES)]
+    log(f"[main] generate_samples cifar {N_BATCHES} batches of {BATCH} images x {STEPS} "
+        f"DDIM steps f32 on {card}: s/batch {', '.join(f'{s:.3f}' for s in secs)} "
+        f"(last: {BATCH / secs[-1]:.2f} images/s), call {wall:.3f} s, "
+        f"peak {peak_gib:.2f} GiB, launches {sample_counts}")
+    if sample_counts != unet_counts(N_BATCHES * STEPS, 0):
+        raise AssertionError(f"main path launches {sample_counts}")
+    pngs = sorted(n for n in os.listdir(out) if n.endswith(".png"))
+    imgs = np.stack([np.asarray(Image.open(os.path.join(out, n))) for n in pngs])
+    log(f"[main] {len(pngs)} PNGs {imgs.shape[1:]} {imgs.dtype}, "
+        f"mean {imgs.mean():.2f}, std {imgs.std():.2f}")
+    if (len(pngs) != BATCH * N_BATCHES or imgs.shape[1:] != (32, 32, 3)
+            or not np.isfinite(imgs).all() or imgs.std() == 0):
+        raise AssertionError("generate_samples did not write the distinct 32x32 RGB PNGs")
 
     # Reference: the sampler on the card against the CPU from the same noise.
     model.eval()
@@ -269,22 +588,38 @@ def main() -> int:
     if not (err <= SAMPLE_ATOL and torch.isfinite(gpu_imgs).all()):
         raise AssertionError("sampling on the card disagrees with the CPU")
 
-    main_attn = attn_rows[(64, 256, 256, 1, 256, "float32")]
-    main_gn = gn_rows[((64, 128, 32, 32), "float32", True)]
+    train_counts = check_training_path(torch, np, ops, train_ensemble, tmp, card)
+
+    # launches: both main paths, sampling then training.
+    launches = {k: sample_counts[k] + train_counts[k] for k in train_counts}
+    main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
+    src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
+    ref = "group_attribution_for_diffusion_models_tpu/ops/"
     kernels = [
-        dict(name="attention_fwd", route="cuda",
-             source="group_attribution_for_diffusion_models_tpu_torch/csrc/attention.cu",
-             # also the head-packed _hp_fwd_kernel (attention.py:309), same function
-             replaces="group_attribution_for_diffusion_models_tpu/ops/attention.py:82",
-             launches=launches["attention"], **main_attn),
-        dict(name="group_norm_silu_fwd", route="cuda",
-             source="group_attribution_for_diffusion_models_tpu_torch/csrc/group_norm.cu",
-             replaces="group_attribution_for_diffusion_models_tpu/ops/group_norm.py:68",
-             launches=launches["group_norm"], **main_gn),
+        # also the head-packed _hp_fwd_kernel (attention.py:309), same function
+        dict(name="attention_fwd", route="cuda", source=src + "attention.cu",
+             replaces=ref + "attention.py:82", launches=launches["attention_fwd"],
+             **attn_rows[(64, 256, 256, 1, 256, "float32")]),
+        # also _hp_bwd_dq_kernel (attention.py:332)
+        dict(name="attention_bwd_dq", route="cuda", source=src + "attention_bwd.cu",
+             replaces=ref + "attention.py:101", launches=launches["attention_bwd_dq"],
+             **main_attn_bwd["dq"]),
+        # also _hp_bwd_dkv_kernel (attention.py:377)
+        dict(name="attention_bwd_dkv", route="cuda", source=src + "attention_bwd.cu",
+             replaces=ref + "attention.py:134", launches=launches["attention_bwd_dkv"],
+             **main_attn_bwd["dkv"]),
+        dict(name="group_norm_silu_fwd", route="cuda", source=src + "group_norm.cu",
+             replaces=ref + "group_norm.py:68", launches=launches["group_norm_fwd"],
+             **gn_rows[((64, 128, 32, 32), "float32", True)]),
+        dict(name="group_norm_silu_bwd", route="cuda", source=src + "group_norm_bwd.cu",
+             replaces=ref + "group_norm.py:90", launches=launches["group_norm_bwd"],
+             **gn_bwd_rows[((64, 128, 32, 32), "float32", True)]),
     ]
     for row in kernels:
+        if row["launches"] <= 0:
+            raise AssertionError(f"{row['name']}: no launch on the main paths")
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
-            if not math.isfinite(row[key]):
+            if row[key] is not None and not math.isfinite(row[key]):
                 raise AssertionError(f"{row['name']}: {key} is not finite")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,23 @@
-"""Shared CLI plumbing: workload configs and the common arguments.
+"""Shared CLI plumbing: workload configs, output layout, common arguments.
 
-Port of the parts of the JAX package's ``cli/common.py`` that sampling
-reads: `config_for` (registry lookup, plus the tiny ``synthetic_*`` specs
-the tests use) and the `add_common_args` flags ``--dataset`` and
-``--num_inference_steps``.
+Port of the parts of the JAX package's ``cli/common.py`` that sampling and
+the ensemble trainer read: `config_for` (registry lookup, plus the tiny
+``synthetic_*`` specs the tests use), the model-directory layout, the JSONL
+provenance row, the tracker, and `add_common_args` without
+``--vqvae_weights`` (the LDM slice) and ``--profile_dir`` (a torch profiler
+comes later).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import time
+from typing import Dict, Optional
 
+import numpy as np
+
+from ..config import constants
 from ..config.registry import (
     OptimizerSpec,
     SchedulerSpec,
@@ -19,6 +27,7 @@ from ..config.registry import (
     WorkloadConfig,
     get_config,
 )
+from ..utils.trackers import make_tracker
 
 
 def config_for(dataset: str) -> WorkloadConfig:
@@ -88,7 +97,76 @@ def config_for(dataset: str) -> WorkloadConfig:
     )
 
 
+def removal_dir_name(
+    removal_dist: str,
+    removal_seed: int = 0,
+    datamodel_alpha: Optional[float] = None,
+) -> str:
+    """`full`, or `<dist>/<dist>[_alpha=<a>]_seed=<seed>`."""
+    if removal_dist == "full":
+        return "full"
+    if removal_dist == "datamodel" and datamodel_alpha is not None:
+        leaf = f"{removal_dist}_alpha={datamodel_alpha}_seed={removal_seed}"
+    else:
+        leaf = f"{removal_dist}_seed={removal_seed}"
+    return os.path.join(removal_dist, leaf)
+
+
+def model_output_dir(
+    outdir: str,
+    dataset: str,
+    method: str,
+    removal_dist: str,
+    removal_seed: int = 0,
+    datamodel_alpha: Optional[float] = None,
+) -> str:
+    return os.path.join(
+        outdir, dataset, method, "models",
+        removal_dir_name(removal_dist, removal_seed, datamodel_alpha),
+    )
+
+
 def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--dataset", type=str, required=True,
                         help="dataset name (incl. synthetic_* for smoke runs)")
+    parser.add_argument("--outdir", type=str, default=constants.OUTDIR)
+    parser.add_argument("--db", type=str, default=None,
+                        help="JSONL results database path")
+    parser.add_argument("--exp_name", type=str, default=None)
+    parser.add_argument("--opt_seed", type=int, default=42,
+                        help="seed for model init / training randomness")
+    parser.add_argument("--removal_dist", type=str, default="full",
+                        choices=constants.REMOVAL_DIST)
+    parser.add_argument("--removal_seed", type=int, default=0)
+    parser.add_argument("--datamodel_alpha", type=float, default=0.5)
+    parser.add_argument("--removal_idx", type=int, default=None,
+                        help="index for loo/aoi removal")
+    parser.add_argument("--by_class", action="store_true", default=False)
     parser.add_argument("--num_inference_steps", type=int, default=100)
+    parser.add_argument("--tracker", type=str, default="none", choices=["none", "jsonl"],
+                        help="training-scalar tracker (logs under <outdir>/logs)")
+
+
+def tracker_for(args, run_name: str):
+    """Scalar tracker from common CLI args (logs land under <outdir>/logs)."""
+    return make_tracker(
+        args.tracker,
+        run_name=run_name,
+        config={k: v for k, v in vars(args).items()
+                if isinstance(v, (int, float, str, bool, type(None)))},
+        logdir=os.path.join(args.outdir, "logs"),
+    )
+
+
+def provenance_row(args, **extra) -> Dict:
+    """vars(args) + extras: the JSONL row schema LDS keys on."""
+    row = {k: v for k, v in vars(args).items()}
+    row["timestamp"] = time.time()
+    row.update(extra)
+    return row
+
+
+def save_removal_indices(model_dir: str, remaining, removed) -> None:
+    os.makedirs(model_dir, exist_ok=True)
+    np.save(os.path.join(model_dir, "remaining_idx.npy"), np.asarray(remaining))
+    np.save(os.path.join(model_dir, "removed_idx.npy"), np.asarray(removed))

@@ -1,0 +1,362 @@
+"""Train many removal subsets as one ensemble, score them, write their rows.
+
+Port of the JAX package's ``cli/train_ensemble.py``: give it a seed range
+and it draws each seed's removal subset, trains one U-Net per subset
+(`parallel.ensemble.EnsembleTrainer`), optionally records each member's
+fixed-probe eval loss and samples it with DDIM, writes one checkpoint per
+member and appends one JSONL provenance row per member, the rows the LDS
+tier reads. Members whose final checkpoint (or, under --no-save_ckpts,
+whose DB row) already exists are skipped.
+
+Runs on CUDA unless ``--device cpu`` is given; on CUDA, float32 means
+float32 (TF32 off in cuDNN convolutions and CUDA matmuls) and cuDNN runs
+deterministic algorithms, so two runs of a step give bit-identical
+gradients (the attention and GroupNorm kernels use no atomics). Not ported yet:
+in-loop scoring (``--score``, ``--inception_weights``, ``--ref_stats``), the
+device mesh (``--mesh_ensemble``, ``--mesh_data``), latent (VQ-VAE)
+workloads and ``--remat_policy``. ``--bf16`` is the JAX CLI's: float32
+parameters and optimizer state, bf16 compute.
+
+Usage (smoke, CPU):
+    python -m group_attribution_for_diffusion_models_tpu_torch.cli.train_ensemble \\
+        --dataset synthetic_64x8 --removal_dist shapley --seed_start 0 \\
+        --num_seeds 8 --training_steps 10 --outdir /tmp/out --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import constants
+from ..data import create_dataset, sample_removal
+from ..diffusion.sampling import make_sampler
+from ..diffusion.schedulers import add_noise, make_schedule
+from ..models.unet2d import UNet2D, build_unet
+from ..parallel.ensemble import EnsembleTrainer, derived_seed
+from ..training.state import TrainState, make_optimizer
+from ..utils.ckpt import (
+    get_max_steps, load_checkpoint, load_meta, load_unet_spec, save_checkpoint,
+)
+from ..utils.device import resolve_device
+from ..utils.jsonl import append_record, filter_records
+from .common import (
+    add_common_args,
+    config_for,
+    model_output_dir,
+    provenance_row,
+    save_removal_indices,
+    tracker_for,
+)
+
+EVAL_PROBE_SEED = 12345
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    add_common_args(parser)
+    parser.add_argument("--method", type=str, default="retrain",
+                        choices=constants.METHOD)
+    parser.add_argument("--seed_start", type=int, default=0)
+    parser.add_argument("--num_seeds", type=int, default=8)
+    parser.add_argument("--training_steps", type=int, default=None)
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--load", type=str, default=None,
+                        help="shared start point for every member (a port checkpoint dir)")
+    parser.add_argument("--n_samples", type=int, default=0,
+                        help="per-member samples to generate after training")
+    parser.add_argument("--eval_loss", action="store_true", default=False,
+                        help="record a deterministic eval loss per member: "
+                             "diffusion loss of the EMA weights on a fixed probe "
+                             "batch with fixed noise/timesteps shared across members")
+    parser.add_argument("--eval_probe_size", type=int, default=256)
+    parser.add_argument("--eval_t_min", type=int, default=0)
+    parser.add_argument("--eval_t_max", type=int, default=None,
+                        help="probe-timestep band [min, max)")
+    parser.add_argument("--bf16", action="store_true", default=False,
+                        help="bf16 compute with float32 parameters and optimizer state")
+    parser.add_argument("--remat", action="store_true", default=False,
+                        help="recompute each resnet/attention block in the backward")
+    parser.add_argument(
+        "--removal_masks", type=str, default=None,
+        help=".npy of explicit keep-masks, one row per removal seed (row "
+        "index = seed). Class-level masks (width = #classes) need "
+        "--by_class; image-level masks have width = len(dataset). "
+        "Use with --removal_dist enum.",
+    )
+    parser.add_argument(
+        "--save_ckpts", action=argparse.BooleanOptionalAction, default=True,
+        help="save a checkpoint per member (default). With --no-save_ckpts the "
+        "DB row is the completion record for the idempotent skip.",
+    )
+    parser.add_argument("--independent_noise", action="store_true", default=False,
+                        help="per-member independent init/noise draws. Default is "
+                             "common random numbers: every member shares the init "
+                             "and the per-step slot/timestep/noise draws")
+    parser.add_argument("--log_freq", type=int, default=0,
+                        help="tracker log interval in steps (0 = only final; "
+                             "each log waits for the device)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the kernels' plain versions")
+    return parser.parse_args(argv)
+
+
+def _removals(args, dataset, seeds):
+    """(remaining, removed) index arrays per seed, from --removal_masks or
+    the removal sampler."""
+    if args.removal_masks:
+        if args.removal_dist != "enum":
+            raise SystemExit(
+                "--removal_masks requires --removal_dist enum "
+                f"(got {args.removal_dist!r})"
+            )
+        masks = np.load(args.removal_masks)
+        if masks.ndim != 2:
+            raise SystemExit(
+                f"--removal_masks must be 2-D (seeds x units); got shape {masks.shape}"
+            )
+        if args.seed_start + args.num_seeds > len(masks):
+            raise SystemExit(
+                f"--removal_masks has {len(masks)} rows but seeds run to "
+                f"{args.seed_start + args.num_seeds - 1}"
+            )
+        expected = (int(dataset.labels.max()) + 1) if args.by_class else len(dataset)
+        if masks.shape[1] != expected:
+            raise SystemExit(
+                f"--removal_masks width {masks.shape[1]} != expected "
+                f"{expected} ({'classes, --by_class set' if args.by_class else 'images'})"
+            )
+
+        def mask_to_removal(row):
+            keep = row.astype(bool)[dataset.labels] if args.by_class else row.astype(bool)
+            return (np.flatnonzero(keep).astype(np.int64),
+                    np.flatnonzero(~keep).astype(np.int64))
+
+        return [mask_to_removal(masks[s]) for s in seeds]
+    if args.removal_dist == "enum":
+        raise SystemExit("--removal_dist enum requires --removal_masks")
+    target = dataset.labels if args.by_class else len(dataset)
+    return [
+        sample_removal(args.removal_dist, target, seed=s, alpha=args.datamodel_alpha,
+                       by_class=args.by_class)
+        for s in seeds
+    ]
+
+
+def _ema_model(model: UNet2D, state: TrainState) -> UNet2D:
+    """`model` holding the member's EMA weights."""
+    model.load_state_dict(state.state_dicts()[1])
+    return model
+
+
+def main(argv=None):
+    """Run the CLI. Returns a summary dict: the seeds trained and skipped,
+    the per-member batch size (the smallest subset's size caps it, as in the
+    JAX CLI), train and sampling seconds, per-member final loss and eval loss (None
+    without --eval_loss), the samples (M, n, C, H, W) as a numpy array (None
+    without --n_samples), the DB path and the member model dirs."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        # cuDNN's default backward algorithms may sum with atomics; members on
+        # identical subsets must stay bit-identical under common noise.
+        torch.backends.cudnn.deterministic = True
+    cfg = config_for(args.dataset)
+    if cfg.vqvae is not None:
+        raise NotImplementedError("latent (VQ-VAE) workloads are not ported yet")
+    # NOT `or`: --training_steps 0 means the untrained null model (the
+    # pipeline's y_v0 anchor), not "use the config budget".
+    training_steps = (
+        args.training_steps
+        if args.training_steps is not None
+        else cfg.train.training_steps.get(args.method, 1000)
+    )
+    batch_size = args.batch_size or cfg.train.batch_size
+
+    dataset = create_dataset(args.dataset, train=True)
+    seeds = list(range(args.seed_start, args.seed_start + args.num_seeds))
+    db = args.db or os.path.join(args.outdir, f"{args.dataset}_train_db.jsonl")
+
+    def member_dir(seed: int) -> str:
+        return model_output_dir(
+            args.outdir, args.dataset, args.method, args.removal_dist, seed,
+            args.datamodel_alpha if args.removal_dist == "datamodel" else None,
+        )
+
+    def done(seed: int) -> bool:
+        latest = get_max_steps(member_dir(seed))
+        if latest is not None and latest >= training_steps:
+            return True
+        if args.save_ckpts or not os.path.exists(db):
+            return False
+        # Match on every arg that changes the row's value, not just the
+        # subset identity.
+        cond = {
+            "dataset": args.dataset, "method": args.method,
+            "removal_dist": args.removal_dist, "removal_seed": seed,
+        }
+        if args.removal_dist == "datamodel":
+            cond["datamodel_alpha"] = args.datamodel_alpha
+        for rec in filter_records(db, cond):
+            if rec.get("training_steps") not in (training_steps, args.training_steps):
+                continue
+            if (rec.get("eval_t_min", args.eval_t_min) != args.eval_t_min
+                    or rec.get("eval_t_max", args.eval_t_max) != args.eval_t_max):
+                continue
+            return True
+        return False
+
+    skipped = [s for s in seeds if done(s)]
+    seeds = [s for s in seeds if s not in skipped]
+    summary = {"seeds": seeds, "skipped": skipped, "batch_size": None, "train_seconds": 0.0,
+               "sample_seconds": 0.0, "losses": [], "eval_losses": None,
+               "samples": None, "db": db, "model_dirs": [member_dir(s) for s in seeds]}
+    if skipped:
+        print(f"skipping {len(skipped)} already-complete seeds: {skipped}")
+    if not seeds:
+        print("all members already trained; nothing to do")
+        return summary
+
+    removals = _removals(args, dataset, seeds)
+    member_indices = [r[0] for r in removals]
+    empty = [s for s, m in zip(seeds, member_indices) if len(m) == 0]
+    if empty:
+        raise SystemExit(
+            f"removal seeds {empty} keep zero examples; cannot train empty members"
+        )
+
+    spec = cfg.unet
+    if args.load:
+        # The stored (possibly pruned) architecture replaces the config's.
+        spec = load_unet_spec(load_meta(args.load)) or spec
+    opt = cfg.train.optimizer
+    tx = make_optimizer(
+        opt.name, lr=args.lr or opt.lr, weight_decay=opt.weight_decay,
+        grad_clip_norm=opt.grad_clip_norm, maximize=args.method in ("ga", "ga_u"),
+    )
+    train_data = ((dataset.images + 1.0) * 127.5).round().astype(np.uint8)
+    trainer = EnsembleTrainer(
+        tx=tx,
+        schedule=make_schedule(cfg.scheduler, device),
+        spec=cfg.scheduler,
+        images_u8=train_data,
+        member_indices=member_indices,
+        batch_size=min(batch_size, min(len(m) for m in member_indices)),
+        device=device,
+        common_noise=not args.independent_noise,
+    )
+    summary["batch_size"] = trainer.batch_size
+
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+
+    def init_fn(seed: int) -> UNet2D:
+        return build_unet(spec, seed, remat=args.remat, compute_dtype=compute_dtype)
+
+    params = None
+    if args.load:
+        params = load_checkpoint(args.load)["params"]
+        print(f"all members start from {args.load}")
+    states = trainer.init_state(init_fn, params=params, seed=args.opt_seed)
+
+    tracker = tracker_for(args, f"{args.dataset}_ensemble_{args.method}")
+
+    def log_fn(metrics, step):
+        tracker.log({"loss_mean": float(metrics["loss"].mean())}, step)
+
+    t_start = time.time()
+    losses = np.full(len(seeds), np.nan)
+    if training_steps > 0:
+        states, metrics = trainer.run(states, training_steps, seed=args.opt_seed,
+                                      log_every=args.log_freq, log_fn=log_fn)
+        losses = metrics["loss"].cpu().numpy()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_time = time.time() - t_start
+    if training_steps > 0:
+        # Final log regardless of interval ('0 = only final').
+        tracker.log({"loss_mean": float(np.mean(losses))}, training_steps)
+    # training_steps=0: init-only members (the "null model" y_v0 of the
+    # Shapley efficiency constraint), with NaN losses.
+    tracker.finish()
+    print(f"{len(seeds)} members x {training_steps} steps in {train_time:.1f}s; "
+          f"losses {losses.round(4).tolist()}")
+    summary.update(train_seconds=train_time, losses=losses.tolist())
+
+    scratch = UNet2D(spec, compute_dtype=compute_dtype).to(device).eval()
+    eval_losses = None
+    if args.eval_loss:
+        # The probe, its timesteps and its noise come from a CPU generator,
+        # so they are the same on every device and for every member.
+        probe_n = min(args.eval_probe_size, len(dataset))
+        probe = torch.from_numpy(dataset.images[:probe_n]).permute(0, 3, 1, 2).contiguous()
+        gen = torch.Generator().manual_seed(EVAL_PROBE_SEED)
+        t_fixed = torch.randint(args.eval_t_min,
+                                args.eval_t_max or cfg.scheduler.num_train_timesteps,
+                                (probe_n,), generator=gen)
+        noise_fixed = torch.randn(probe.shape, generator=gen)
+        probe, t_fixed, noise_fixed = (x.to(device) for x in (probe, t_fixed, noise_fixed))
+        schedule = make_schedule(cfg.scheduler, device)
+        eval_losses = []
+        with torch.no_grad():
+            x_t = add_noise(schedule, probe, noise_fixed, t_fixed)
+            for state in states:
+                eps = _ema_model(scratch, state)(x_t, t_fixed)
+                eval_losses.append(torch.mean((eps - noise_fixed) ** 2))
+        eval_losses = torch.stack(eval_losses).cpu().numpy()
+        print(f"eval losses: {eval_losses.round(5).tolist()}")
+        summary["eval_losses"] = eval_losses.tolist()
+
+    sample_time = 0.0
+    if args.n_samples > 0:
+        shape = (args.n_samples, spec.in_channels, spec.sample_size, spec.sample_size)
+        t0 = time.time()
+        samples = []
+        for m, state in enumerate(states):
+            sampler = make_sampler(_ema_model(scratch, state), cfg.scheduler, shape,
+                                   device=device,
+                                   num_inference_steps=args.num_inference_steps)
+            gen = torch.Generator(device=device).manual_seed(derived_seed(args.opt_seed, m))
+            samples.append(sampler(generator=gen))
+        samples = torch.stack(samples).cpu().numpy()
+        sample_time = time.time() - t0
+        print(f"sampled {samples.shape} in {sample_time:.1f}s")
+        summary.update(sample_seconds=sample_time, samples=samples)
+
+    for m, seed in enumerate(seeds):
+        remaining_idx, removed_idx = removals[m]
+        model_dir = member_dir(seed)
+        save_removal_indices(model_dir, remaining_idx, removed_idx)
+        if args.save_ckpts:
+            member_params, member_ema = states[m].state_dicts()
+            save_checkpoint(
+                model_dir, training_steps, member_params, member_ema, remaining_idx,
+                removed_idx, train_time / len(seeds), unet_spec=spec,
+            )
+        row = provenance_row(
+            args,
+            removal_seed=seed,
+            loss=float(losses[m]),
+            eval_loss=float(eval_losses[m]) if eval_losses is not None else None,
+            fid_value=None,
+            **{"is": None},
+            remaining_idx=remaining_idx,
+            removed_idx=removed_idx,
+            total_steps_time=train_time / len(seeds),
+            sampling_time=sample_time / len(seeds),
+            scoring_time=0.0,
+            model_dir=model_dir,
+        )
+        append_record(db, row)
+    print(f"{len(seeds)} members -> {db}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -2,6 +2,7 @@ from .sampling import make_sampler, sample_loop  # noqa: F401
 from .schedulers import (  # noqa: F401
     ScheduleState,
     add_noise,
+    antithetic_timesteps,
     ddim_step,
     ddpm_step,
     inference_timesteps,

@@ -2,8 +2,10 @@
 
 Port of the JAX package's ``diffusion/schedulers.py``. Schedule tables are
 built once on the host (numpy, float32), so every device gets the same
-tables, into a `ScheduleState` of tensors on the caller's device; `add_noise`, `ddpm_step` and `ddim_step` are pure functions of their
-tensor arguments, with noise always supplied by the caller.
+tables, into a `ScheduleState` of tensors on the caller's device;
+`add_noise`, `ddpm_step` and `ddim_step` are pure functions of their tensor
+arguments, with noise always supplied by the caller, and
+`antithetic_timesteps` draws from the caller's `torch.Generator`.
 
 Semantics mirror diffusers v0.24: linear/scaled_linear/cosine betas,
 DDPM ancestral steps with fixed_small/fixed_large variance, DDIM with eta,
@@ -70,6 +72,18 @@ def add_noise(
     """Forward diffusion q(x_t | x_0) (matches diffusers add_noise)."""
     acp = _extract(state.alphas_cumprod, t, x0.ndim)
     return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
+
+
+def antithetic_timesteps(
+    generator: torch.Generator, batch: int, num_train_timesteps: int, device=None
+) -> torch.Tensor:
+    """Antithetic timestep sampling for variance reduction: batch // 2 + 1
+    uniform draws from `generator`, then their mirrors T - t - 1, cut to
+    `batch` (the reference hot loop, unconditional_generation/main.py:683-696)."""
+    half = batch // 2 + 1
+    t = torch.randint(0, num_train_timesteps, (half,), generator=generator,
+                      device=device or generator.device)
+    return torch.cat([t, num_train_timesteps - t - 1])[:batch]
 
 
 def pred_original_sample(

@@ -2,7 +2,13 @@
 
 Port of the JAX package's ``models/unet2d.py`` for the unconditional
 UNet2DModel configs (CIFAR, MNIST and the synthetic specs); cross-attention
-blocks and remat come with later slices. The skip wiring mirrors diffusers:
+blocks come with a later slice. ``remat=True`` recomputes each resnet and
+attention block in the backward (``torch.utils.checkpoint``), as the JAX
+``remat=True`` with no policy does; its selective policies wait.
+``compute_dtype=torch.bfloat16`` is the JAX model's ``dtype=bfloat16``:
+float32 parameters, convolutions, linears and activations in bf16 (under
+``torch.autocast``), GroupNorm statistics and attention softmax in f32
+inside the kernels, the output in float32. The skip wiring mirrors diffusers:
 push after conv_in, after every resnet(+attention) and after every
 downsample; up-blocks pop in reverse and concatenate [h, skip] on channels.
 Submodule names are the diffusers state-dict keys (``down_blocks.I.resnets.J``,
@@ -11,8 +17,11 @@ Submodule names are the diffusers state-dict keys (``down_blocks.I.resnets.J``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.registry import UNetSpec
 from .layers import (
@@ -32,17 +41,21 @@ _UP_TYPES = {"UpBlock2D", "AttnUpBlock2D"}
 class UNet2D(nn.Module):
     """Noise-prediction U-Net. Input/output NCHW; timesteps shape (B,).
 
-    The forward runs in the dtype of the parameters (``model.to(dtype)``)
-    and returns float32, like the JAX model's ``dtype`` field.
+    The forward runs in `compute_dtype` when it is set (parameters stay in
+    their own dtype, as the JAX model's ``dtype`` field keeps them f32), else
+    in the dtype of the parameters (``model.to(dtype)``), and returns float32.
     """
 
-    def __init__(self, spec: UNetSpec):
+    def __init__(self, spec: UNetSpec, remat: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if spec.conditional:
             raise NotImplementedError(
                 "cross-attention U-Nets are not ported yet (unconditional specs only)"
             )
         self.spec = spec
+        self.remat = remat
+        self.compute_dtype = compute_dtype
         boc = spec.block_out_channels
         groups, eps = spec.norm_num_groups, spec.norm_eps
         temb_ch = boc[0] * 4
@@ -113,8 +126,21 @@ class UNet2D(nn.Module):
         self.conv_norm_out = GroupNormSiLU(ch, groups, eps)
         self.conv_out = nn.Conv2d(ch, spec.out_channels, 3, padding=1)
 
+    def _run(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        """block(*args), recomputed in the backward under remat."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return self._forward(x, timesteps)
+        with torch.autocast(x.device.type, dtype=self.compute_dtype):
+            return self._forward(x, timesteps)
+
+    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         spec = self.spec
+        run = self._run
         dtype = self.conv_in.weight.dtype
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(x.shape[0])
@@ -128,33 +154,34 @@ class UNet2D(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for j, res in enumerate(block.resnets):
-                h = res(h, temb)
+                h = run(res, h, temb)
                 if len(block.attentions):
-                    h = block.attentions[j](h)
+                    h = run(block.attentions[j], h)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
+        h = run(self.mid_block.resnets[0], h, temb)
         if len(self.mid_block.attentions):
-            h = self.mid_block.attentions[0](h)
-        h = self.mid_block.resnets[1](h, temb)
+            h = run(self.mid_block.attentions[0], h)
+        h = run(self.mid_block.resnets[1], h, temb)
 
         for block in self.up_blocks:
             for j, res in enumerate(block.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                h = run(res, torch.cat([h, skips.pop()], dim=1), temb)
                 if len(block.attentions):
-                    h = block.attentions[j](h)
+                    h = run(block.attentions[j], h)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 
         return self.conv_out(self.conv_norm_out(h)).float()
 
 
-def build_unet(spec: UNetSpec, seed: int) -> UNet2D:
+def build_unet(spec: UNetSpec, seed: int, remat: bool = False,
+               compute_dtype: Optional[torch.dtype] = None) -> UNet2D:
     """A UNet2D with torch's default initialisation drawn from `seed`, without
     touching the caller's global random state."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return UNet2D(spec)
+        return UNet2D(spec, remat=remat, compute_dtype=compute_dtype)

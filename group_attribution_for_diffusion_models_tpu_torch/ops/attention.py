@@ -1,14 +1,21 @@
-"""Scaled dot-product attention on (B, S, H, D): CUDA kernel and plain version.
+"""Scaled dot-product attention on (B, S, H, D): CUDA kernels, plain versions
+and the autograd Function that joins them.
 
-Port of the forward Pallas kernels of the JAX package's ``ops/attention.py``
-(``_flash_kernel`` and ``_hp_fwd_kernel``); both compute softmax(Q K^T /
-sqrt(D)) V per (batch, head) with an f32 softmax, and one CUDA kernel
-(``csrc/attention.cu``) serves both layouts by reading strides. The JAX
-package routes each shape between Pallas and XLA through a table measured on
-a TPU; here the kernel is the path for every CUDA tensor.
+Port of the Pallas kernels of the JAX package's ``ops/attention.py``: the
+forward (``_flash_kernel``, ``_hp_fwd_kernel``) in ``csrc/attention.cu`` and
+the backward's two passes (``_flash_bwd_dq_kernel``/``_hp_bwd_dq_kernel``,
+``_flash_bwd_dkv_kernel``/``_hp_bwd_dkv_kernel``) in
+``csrc/attention_bwd.cu``. Each CUDA kernel serves both TPU layouts by
+reading strides. The JAX package routes each shape between Pallas and XLA
+through a table measured on a TPU; here the kernels are the path for every
+CUDA tensor, in both directions.
 
-`dot_product_attention` takes the plain PyTorch version for a CPU tensor and
-the kernel for a CUDA tensor; there is no fallback between them.
+`dot_product_attention` is a `torch.autograd.Function` that saves only
+(q, k, v), as the JAX ``custom_vjp`` does, and recomputes the softmax in the
+backward. Its forward and backward each take the plain PyTorch version for a
+CPU tensor and the kernel for a CUDA tensor; there is no fallback between
+them. Under autocast both compute in f32 from the inputs' dtype, as the
+kernels do.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -32,43 +40,117 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-@functools.cache
-def _fwd_fn():
-    lib = _build.load("attention")
-    fn = lib.gadm_attention_fwd
+def attention_bwd_dq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference dQ pass in f32: (dq, lse, delta) with lse = logsumexp of the
+    scores and delta = rowsum(dO * O), both (B, H, Sq); dq in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    delta = (o * gf).sum(-1).permute(0, 2, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq.to(q.dtype), lse, delta
+
+
+def attention_bwd_dkv_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference dK/dV pass in f32 from the dQ pass's lse and delta:
+    P = exp(S - lse), dS = P (dP - delta), dk = dS^T Q / sqrt(D), dv = P^T dO."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference (dq, dk, dv) of `attention_plain` for the upstream gradient
+    `do`: the two passes above, in f32, returned in the inputs' dtypes."""
+    dq, lse, delta = attention_bwd_dq_plain(q, k, v, do)
+    dk, dv = attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+    return dq, dk, dv
+
+
+def _bind(source: str, symbol: str, pointers: int, ints: int):
+    lib = _build.load(source)
+    fn = getattr(lib, symbol)
     fn.argtypes = (
-        [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * pointers
+        + [ctypes.c_int] * ints
         + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib, fn
 
 
+@functools.cache
+def _fwd_fn():
+    return _bind("attention", "gadm_attention_fwd", 4, 6)
+
+
+@functools.cache
+def _bwd_dq_fn():
+    return _bind("attention_bwd", "gadm_attention_bwd_dq", 7, 6)
+
+
+@functools.cache
+def _bwd_dkv_fn():
+    return _bind("attention_bwd", "gadm_attention_bwd_dkv", 8, 6)
+
+
+def _checked(name, q, k, v, *more):
+    """Validate (B, Sq, H, D) q and (B, Skv, H, D) k/v (plus tensors shaped
+    like q in `more`) for a kernel; returns them with unit stride on D."""
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, *more)):
+        raise ValueError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if any(t.shape != q.shape for t in more):
+        raise ValueError(f"{name}: gradient shape must be q's {tuple(q.shape)}")
+    if d % 8 or d > 256:
+        raise ValueError(f"head dim {d} must be a multiple of 8 and at most 256")
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v, *more))):
+        raise ValueError(f"{name} needs its tensors on one CUDA device")
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, *more))
+
+
+def _strides(*tensors):
+    return (ctypes.c_int64 * (3 * len(tensors)))(
+        *(t.stride(i) for t in tensors for i in (0, 1, 2))
+    )
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The CUDA attention forward kernel. q: (B, Sq, H, D), k/v: (B, Skv, H, D),
     all on one CUDA device in float32 or bfloat16, D % 8 == 0 and D <= 256."""
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"attention_kernel takes float32 or bfloat16, got {q.dtype}")
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    q, k, v = _checked("attention_kernel", q, k, v)
     b, sq, h, d = q.shape
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d % 8 or d > 256:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and at most 256")
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("attention_kernel needs q, k, v on one CUDA device")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_int64 * 9)(
-        *(t.stride(i) for t in (q, k, v) for i in (0, 1, 2))
-    )
     lib, fn = _fwd_fn()
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, h, sq, k.shape[1], d, strides, 1.0 / math.sqrt(d), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, sq, k.shape[1], d, _strides(q, k, v), 1.0 / math.sqrt(d), q.device.index,
+        _stream(q),
     )
     _build.check(lib, err, "attention forward kernel")
     attention_kernel.launches += 1
@@ -78,11 +160,88 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 attention_kernel.launches = 0
 
 
+def attention_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA dQ pass: (dq, lse, delta), lse and delta of shape (B, H, Sq)
+    in f32. Takes what `attention_kernel` takes, and `do` shaped like q."""
+    q, k, v, do = _checked("attention_bwd_dq", q, k, v, do)
+    b, sq, h, d = q.shape
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib, fn = _bwd_dq_fn()
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, h, sq, k.shape[1], d,
+        _strides(q, k, v, do), 1.0 / math.sqrt(d), q.device.index, _stream(q),
+    )
+    _build.check(lib, err, "attention backward dQ kernel")
+    attention_bwd_dq.launches += 1
+    return dq, lse, delta
+
+
+attention_bwd_dq.launches = 0
+
+
+def attention_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA dK/dV pass: (dk, dv), from the dQ pass's lse and delta."""
+    q, k, v, do = _checked("attention_bwd_dkv", q, k, v, do)
+    b, sq, h, d = q.shape
+    want = (b, h, sq)
+    for t in (lse, delta):
+        if t.shape != want or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"lse/delta must be float32 {want} on {q.device}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    lib, fn = _bwd_dkv_fn()
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, sq,
+        k.shape[1], d, _strides(q, k, v, do), 1.0 / math.sqrt(d), q.device.index,
+        _stream(q),
+    )
+    _build.check(lib, err, "attention backward dK/dV kernel")
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+attention_bwd_dkv.launches = 0
+
+
+def attention_bwd_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) through both CUDA backward passes."""
+    dq, lse, delta = attention_bwd_dq(q, k, v, do)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        with torch.autocast(q.device.type, enabled=False):  # f32 inside, as the kernel
+            if q.device.type == "cpu":
+                return attention_plain(q, k, v)
+            return attention_kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return attention_bwd_plain(q, k, v, do)
+        return attention_bwd_kernel(q, k, v, do.to(q.dtype))
+
+
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> torch.Tensor:
-    """Scaled dot-product attention on (B, S, H, D): the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    return attention_kernel(q, k, v)
+    """Scaled dot-product attention on (B, S, H, D), differentiable: the CUDA
+    kernels for CUDA tensors, the plain versions for CPU tensors."""
+    return _Attention.apply(q, k, v)

@@ -1,14 +1,19 @@
-"""GroupNorm(+SiLU) forward on NCHW: CUDA kernel and plain version.
+"""GroupNorm(+SiLU) on NCHW: CUDA kernels, plain versions and the autograd
+Function that joins them.
 
-Port of the forward Pallas kernel of the JAX package's ``ops/group_norm.py``
-(``_fwd_kernel``): f32 group statistics with var = E[x^2] - mean^2,
-(x - mean) * rstd * gamma + beta, an optional SiLU, the output in
-``out_dtype``, and mean/rstd of shape (B, G) in f32, the residuals the
-backward kernel will read. The JAX package keeps its kernel opt-in on the
-TPU; here ``csrc/group_norm.cu`` is the path for every CUDA tensor.
+Port of the Pallas kernels of the JAX package's ``ops/group_norm.py``: the
+forward ``_fwd_kernel`` (``csrc/group_norm.cu``: f32 group statistics with
+var = E[x^2] - mean^2, (x - mean) * rstd * gamma + beta, an optional SiLU,
+the output in ``out_dtype``, and mean/rstd of shape (B, G) in f32) and the
+backward ``_bwd_kernel`` (``csrc/group_norm_bwd.cu``: dx in x's dtype and
+per-(sample, channel) partial dgamma/dbeta in f32, summed over the batch
+outside the kernel). The JAX package keeps its kernels opt-in on the TPU;
+here they are the path for every CUDA tensor, in both directions.
 
-`group_norm_silu_forward` takes the plain PyTorch version for a CPU tensor
-and the kernel for a CUDA tensor; there is no fallback between them.
+`group_norm_silu` is a `torch.autograd.Function` that saves
+(x, gamma, beta, mean, rstd), as the JAX ``custom_vjp`` does. Its forward
+and backward each take the plain PyTorch version for a CPU tensor and the
+kernel for a CUDA tensor; there is no fallback between them.
 """
 
 from __future__ import annotations
@@ -42,6 +47,39 @@ def group_norm_silu_plain(
     return y.to(out_dtype), mean, rstd
 
 
+def group_norm_silu_bwd_plain(
+    x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    mean: torch.Tensor, rstd: torch.Tensor, groups: int, silu: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference (dx, dgamma, dbeta) for x of shape (B, C, *spatial), the
+    upstream gradient `dy` and the forward's (B, G) mean/rstd, following
+    ``_bwd_kernel``: dx in x's dtype, dgamma and dbeta in f32."""
+    b, c = x.shape[:2]
+    cshape = (1, c) + (1,) * (x.ndim - 2)
+
+    def per_channel(t):  # (B, G) -> broadcastable over (B, C, *spatial)
+        return t.reshape(b, groups, 1).expand(b, groups, c // groups).reshape(
+            (b, c) + (1,) * (x.ndim - 2))
+
+    gam = gamma.float().reshape(cshape)
+    xhat = (x.float() - per_channel(mean)) * per_channel(rstd)
+    g = dy.float()
+    if silu:
+        y = xhat * gam + beta.float().reshape(cshape)
+        sig = torch.sigmoid(y)
+        g = g * sig * (1.0 + y * (1.0 - sig))
+    spatial = tuple(range(2, x.ndim))
+    dgamma = (g * xhat).sum(dim=(0,) + spatial)
+    dbeta = g.sum(dim=(0,) + spatial)
+    dyg = g * gam
+    n = x[0].numel() // groups
+    m1 = dyg.reshape(b, groups, -1).sum(-1) / n
+    m2 = (dyg * xhat).reshape(b, groups, -1).sum(-1) / n
+    dx = (dyg.reshape(b, groups, -1) - m1[..., None]
+          - xhat.reshape(b, groups, -1) * m2[..., None]) * rstd[..., None]
+    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
+
+
 @functools.cache
 def _fwd_fn():
     lib = _build.load("group_norm")
@@ -51,6 +89,15 @@ def _fwd_fn():
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.cache
+def _bwd_fn():
+    lib = _build.load("group_norm_bwd")
+    fn = lib.gadm_group_norm_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -90,12 +137,53 @@ def group_norm_kernel(
 group_norm_kernel.launches = 0
 
 
+def group_norm_bwd_kernel(
+    x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+    mean: torch.Tensor, rstd: torch.Tensor, groups: int, silu: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA GroupNorm(+SiLU) backward kernel: (dx, dgamma, dbeta) as
+    `group_norm_silu_bwd_plain` returns them. dy is taken in x's dtype, as
+    the JAX rule casts it; the (B, C) partials are summed here."""
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"group_norm_bwd_kernel takes float32 or bfloat16, got {x.dtype}")
+    b, c = x.shape[:2]
+    if c % groups or gamma.shape != (c,) or beta.shape != (c,) or dy.shape != x.shape:
+        raise ValueError(f"channels {c}, groups {groups}, gamma {tuple(gamma.shape)}, "
+                         f"dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    if mean.shape != (b, groups) or rstd.shape != (b, groups):
+        raise ValueError(f"mean/rstd must be ({b}, {groups})")
+    if not (x.is_cuda and dy.device == x.device):
+        raise ValueError("group_norm_bwd_kernel needs x and dy on one CUDA device")
+    x = x.contiguous()
+    dy = dy.to(x.dtype).contiguous()
+    gamma, beta, mean, rstd = (
+        t.to(device=x.device, dtype=torch.float32).contiguous()
+        for t in (gamma, beta, mean, rstd)
+    )
+    dx = torch.empty_like(x)
+    dgamma_p = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    dbeta_p = torch.empty_like(dgamma_p)
+    lib, fn = _bwd_fn()
+    err = fn(
+        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dgamma_p.data_ptr(), dbeta_p.data_ptr(),
+        _DTYPES[x.dtype], b, c, x[0, 0].numel(), groups, int(silu), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, "group norm backward kernel")
+    group_norm_bwd_kernel.launches += 1
+    return dx, dgamma_p.sum(dim=0), dbeta_p.sum(dim=0)
+
+
+group_norm_bwd_kernel.launches = 0
+
+
 def group_norm_silu_forward(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *, groups: int = 32,
     eps: float = 1e-6, silu: bool = True, out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(out, mean, rstd): the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor. out_dtype defaults to x's dtype."""
+    """(out, mean, rstd), not differentiable: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor. out_dtype defaults to x's."""
     out_dtype = out_dtype or x.dtype
     if x.shape[1] % groups:
         raise ValueError(f"channels {x.shape[1]} not divisible by groups {groups}")
@@ -104,12 +192,33 @@ def group_norm_silu_forward(
     return group_norm_kernel(x, gamma, beta, groups, eps, silu, out_dtype)
 
 
+class _GroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, silu, out_dtype):
+        with torch.autocast(x.device.type, enabled=False):  # f32 statistics
+            out, mean, rstd = group_norm_silu_forward(
+                x, gamma, beta, groups=groups, eps=eps, silu=silu, out_dtype=out_dtype
+            )
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.groups, ctx.silu = groups, silu
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        args = (x, dout.to(x.dtype), gamma, beta, mean, rstd, ctx.groups, ctx.silu)
+        if x.device.type == "cpu":
+            dx, dgamma, dbeta = group_norm_silu_bwd_plain(*args)
+        else:
+            dx, dgamma, dbeta = group_norm_bwd_kernel(*args)
+        return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None, None, None
+
+
 def group_norm_silu(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *, groups: int = 32,
     eps: float = 1e-6, silu: bool = True, out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """GroupNorm over the channel axis of (B, C, *spatial), optionally fused
-    with SiLU; statistics in f32 (torch GroupNorm semantics)."""
-    return group_norm_silu_forward(
-        x, gamma, beta, groups=groups, eps=eps, silu=silu, out_dtype=out_dtype
-    )[0]
+    with SiLU; statistics in f32 (torch GroupNorm semantics). Differentiable
+    in x, gamma and beta."""
+    return _GroupNormSiLU.apply(x, gamma, beta, groups, eps, silu, out_dtype or x.dtype)

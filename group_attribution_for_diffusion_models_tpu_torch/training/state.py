@@ -1,0 +1,207 @@
+"""Train state, EMA update and the optimizer, with optax's semantics.
+
+Port of the JAX package's ``training/state.py``. There the whole state is
+one pytree; here `TrainState` holds the U-Net module (its parameters are
+trained in place), the EMA shadow and the optimizer state of one model.
+
+`make_optimizer` builds the chain the JAX package builds with optax: global-
+norm clip, an optional sign flip (``maximize``, gradient-ascent unlearning),
+then Adam or AdamW under a constant, warmup or warmup-cosine schedule. It
+follows optax's formulas, not ``torch.optim``'s: the clip scales by
+max_norm / ||g|| with no epsilon (``clip_grad_norm_`` adds 1e-6 to the norm),
+the update is mu_hat / (sqrt(nu_hat) + eps), and a schedule is read at the
+step count before it increments (warmup step 0 has lr 0). Schedule values
+and bias corrections are computed on the host in float32, as optax computes
+them on the device. Adafactor and 8-bit Adam come with the tiers that use
+them.
+
+EMA semantics match diffusers EMAModel with use_ema_warmup=False, as the
+reference constructs it: per-step decay min(max_decay, (1+step)/(10+step)).
+The JAX step's EMA options (max decay, power, warmup) and
+``use_antithetic`` come with their caller, ``cli/main.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+_F32 = np.float32
+EMA_MAX_DECAY = 0.9999
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def ema_decay_schedule(step: int) -> np.float32:
+    """Per-step EMA decay (diffusers EMAModel.get_decay without warmup), in
+    float32: min(0.9999, (1 + step) / (10 + step))."""
+    step_f = max(_F32(step), _F32(0.0))
+    decay = (_F32(1.0) + step_f) / (_F32(10.0) + step_f)
+    return _F32(min(max(decay, _F32(0.0)), _F32(EMA_MAX_DECAY)))
+
+
+@torch.no_grad()
+def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay) -> None:
+    """Polyak update ema <- ema - (1 - decay) (ema - params), in place."""
+    diff = torch._foreach_sub(ema, params)
+    torch._foreach_mul_(diff, float(_F32(1.0) - _F32(decay)))
+    torch._foreach_sub_(ema, diff)
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], np.float32]:
+    """optax.linear_schedule (polynomial, power 1) in float32."""
+
+    def schedule(count: int) -> np.float32:
+        c = _F32(min(max(count, 0), steps)) if steps > 0 else _F32(0.0)
+        frac = _F32(1.0) - c / _F32(steps) if steps > 0 else _F32(1.0)
+        return _F32(_F32(init - end) * frac + _F32(end))
+
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int) -> Callable[[int], np.float32]:
+    """optax.cosine_decay_schedule with alpha 0 and exponent 1, in float32."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count: int) -> np.float32:
+        c = _F32(min(count, decay_steps))
+        cosine = _F32(0.5) * (_F32(1.0) + np.cos(_F32(math.pi) * c / _F32(decay_steps)))
+        return _F32(_F32(init) * cosine)
+
+    return schedule
+
+
+def make_schedule_fn(
+    lr: float, lr_schedule: str = "constant", total_steps: int = 0, warmup_steps: int = 0
+) -> Callable[[int], np.float32]:
+    """Learning rate as a function of the step count (the JAX package's
+    choices of optax schedule)."""
+    if lr_schedule == "constant":
+        if warmup_steps:
+            return _linear(0.0, lr, warmup_steps)
+        return lambda count: _F32(lr)
+    if lr_schedule == "cosine":
+        warm = _linear(0.0 if warmup_steps else lr, lr, warmup_steps)
+        cos = _cosine(lr, max(total_steps, 1) - warmup_steps)
+        return lambda count: warm(count) if count < warmup_steps else cos(count - warmup_steps)
+    raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
+
+
+@dataclasses.dataclass
+class OptState:
+    """Adam moments and the shared step count of the chain's stateful parts."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+@dataclasses.dataclass
+class Optimizer:
+    """clip -> [scale(-1)] -> adam/adamw -> scale by -lr(count), as optax
+    chains them. `update` applies the update to the parameters in place,
+    where optax returns it."""
+
+    name: str
+    schedule: Callable[[int], np.float32]
+    weight_decay: float = 0.0
+    grad_clip_norm: Optional[float] = 1.0
+    maximize: bool = False
+
+    def init(self, params: List[torch.Tensor]) -> OptState:
+        return OptState(
+            count=0,
+            mu=[torch.zeros_like(p) for p in params],
+            nu=[torch.zeros_like(p) for p in params],
+        )
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: OptState,
+               params: List[torch.Tensor]) -> Optional[torch.Tensor]:
+        """One step. Overwrites `grads` with the clipped gradients and returns
+        their global norm before the clip (None when nothing is clipped)."""
+        norm = None
+        if self.grad_clip_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            clip = norm >= self.grad_clip_norm  # optax: select(norm < max, g, g / norm * max)
+            one = torch.ones_like(norm)
+            torch._foreach_div_(grads, torch.where(clip, norm, one))
+            torch._foreach_mul_(grads, torch.where(clip, one * self.grad_clip_norm, one))
+        if self.maximize:
+            torch._foreach_neg_(grads)
+        torch._foreach_mul_(state.mu, ADAM_B1)
+        torch._foreach_add_(state.mu, grads, alpha=1.0 - ADAM_B1)
+        torch._foreach_mul_(state.nu, ADAM_B2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - ADAM_B2)
+        lr = self.schedule(state.count)
+        state.count += 1
+        bc1 = _F32(1.0) - _F32(ADAM_B1) ** _F32(state.count)
+        bc2 = _F32(1.0) - _F32(ADAM_B2) ** _F32(state.count)
+        update = torch._foreach_div(state.mu, float(bc1))
+        denom = torch._foreach_div(state.nu, float(bc2))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPS)
+        torch._foreach_div_(update, denom)
+        if self.name == "adamw":
+            torch._foreach_add_(update, params, alpha=self.weight_decay)
+        torch._foreach_mul_(update, float(-_F32(lr)))
+        torch._foreach_add_(params, update)
+        return norm
+
+
+def make_optimizer(
+    name: str = "adam",
+    lr: float = 1e-4,
+    weight_decay: float = 0.0,
+    grad_clip_norm: Optional[float] = 1.0,
+    lr_schedule: str = "constant",
+    total_steps: int = 0,
+    warmup_steps: int = 0,
+    maximize: bool = False,
+) -> Optimizer:
+    """The optimizer of the JAX package's `make_optimizer` for `adam` and
+    `adamw` (its `flat` option only regroups optax's leaves: not needed)."""
+    if name not in ("adam", "adamw"):
+        raise ValueError(f"unknown or not yet ported optimizer {name!r}")
+    return Optimizer(
+        name=name,
+        schedule=make_schedule_fn(lr, lr_schedule, total_steps, warmup_steps),
+        weight_decay=weight_decay if name == "adamw" else 0.0,
+        grad_clip_norm=grad_clip_norm,
+        maximize=maximize,
+    )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """One model's training state: the module (parameters trained in place),
+    the EMA shadow in the module's parameter order, the optimizer state and
+    the step count."""
+
+    model: nn.Module
+    ema: List[torch.Tensor]
+    opt_state: OptState
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: Optimizer) -> "TrainState":
+        params = [p for p in model.parameters()]
+        return cls(model=model, ema=[p.detach().clone() for p in params],
+                   opt_state=tx.init(params), step=0)
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return list(self.model.parameters())
+
+    def state_dicts(self):
+        """(params, ema_params) as state dicts keyed like the module's."""
+        names = [n for n, _ in self.model.named_parameters()]
+        params: Dict[str, torch.Tensor] = {
+            n: p.detach() for n, p in self.model.named_parameters()
+        }
+        return params, dict(zip(names, self.ema))

@@ -34,15 +34,20 @@ BATCH, TIMED_STEPS, TIMED_BATCHES, PROFILED_STEPS = 64, 100, 2, 10
 
 
 def group(name: str) -> str:
+    """The kernel group of a device kernel's name (also read by
+    profile_torch_training.py)."""
     low = name.lower()
-    if "attention_fwd_kernel" in name:
-        return "attention (port kernel)"
-    if "group_norm_fwd_kernel" in name:
-        return "group_norm (port kernel)"
+    for kernel in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
+                   "group_norm_fwd", "group_norm_bwd"):
+        if f"{kernel}_kernel" in name:
+            return f"{kernel} (port kernel)"
+    if "multi_tensor_apply" in low:
+        return "optimizer/EMA (foreach)"
     # cuDNN's convolutions: implicit GEMMs, and FFT ones (fft2d, the complex
-    # pointwise product and complex GEMM between them, filter flips).
-    if any(s in low for s in ("conv", "implicit", "fprop", "winograd", "fft",
-                              "complex", "cf32", "flip_filter")):
+    # pointwise product and complex GEMM between them, filter flips), with
+    # their data- and weight-gradient kernels.
+    if any(s in low for s in ("conv", "implicit", "fprop", "dgrad", "wgrad", "winograd",
+                              "fft", "complex", "cf32", "flip_filter")):
         return "convolution (cuDNN)"
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return "layout change (cuDNN)"

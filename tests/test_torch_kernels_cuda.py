@@ -1,10 +1,13 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the train step on the card against the CPU.
 
 Marked `cuda`: they skip without a CUDA device and run on the GPU machine
 with `python -m pytest tests/test_torch_kernels_cuda.py -m cuda`.
 Tolerances (atol, rtol): float32 (5e-5, 1e-5), for summation order only;
 bfloat16 (1e-2, 2**-7): both sides round f32 results that differ in the
 last bits to bf16, so they may land one bf16 ulp (2**-7 relative) apart.
+dgamma/dbeta sum B*HW terms: atol 5e-5 + 1e-5 * max |ref|. The train step:
+relative 1e-4 on the loss and the gradients' norm, f32 with TF32 off.
 """
 
 import numpy as np
@@ -12,9 +15,19 @@ import pytest
 import torch
 
 from group_attribution_for_diffusion_models_tpu_torch.ops import (
+    attention_bwd_dkv,
+    attention_bwd_dkv_plain,
+    attention_bwd_dq,
+    attention_bwd_dq_plain,
+    attention_bwd_kernel,
+    attention_bwd_plain,
     attention_kernel,
     attention_plain,
+    dot_product_attention,
+    group_norm_bwd_kernel,
     group_norm_kernel,
+    group_norm_silu,
+    group_norm_silu_bwd_plain,
     group_norm_silu_plain,
 )
 
@@ -27,6 +40,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     return torch.device("cuda")
 
 
@@ -126,3 +141,160 @@ def test_generate_samples_on_card_goes_through_the_kernels(cuda, tmp_path):
         # _big, per forward: 6 attention layers; 12 resnets x 2 + 6 pre-norms
         # + conv_norm_out = 31 GroupNorms. Two DDIM steps.
         assert (attention_kernel.launches, group_norm_kernel.launches) == (2 * 6, 2 * 31)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,d", [
+    (4, 256, 256, 1, 256), (4, 16, 16, 1, 256), (1, 1024, 1024, 14, 32),
+    (2, 130, 77, 2, 40), (2, 64, 64, 3, 80), (1, 300, 200, 2, 160),
+])
+def test_attention_bwd_kernels_match_plain(cuda, dtype, b, sq, skv, h, d):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+                   for s in (sq, skv, skv, sq))
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    dq, lse, delta = attention_bwd_dq(q, k, v, do)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    want_dq, want_lse, want_delta = attention_bwd_dq_plain(q, k, v, do)
+    want_dk, want_dv = attention_bwd_dkv_plain(q, k, v, do, want_lse, want_delta)
+    atol, rtol = TOL[dtype]
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    for got, want in ((lse, want_lse), (delta, want_delta)):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
+    again = attention_bwd_kernel(q, k, v, do)  # no atomics: bitwise repeatable
+    assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+
+
+def test_attention_bwd_reads_strided_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(2, 96, 3, 2, 40, generator=g, device=cuda)
+    q, k, v = qkv.unbind(dim=2)
+    do = torch.randn(2, 96, 2, 80, generator=g, device=cuda)[..., ::2]
+    atol, rtol = TOL[torch.float32]
+    for got, want in zip(attention_bwd_kernel(q, k, v, do), attention_bwd_plain(q, k, v, do)):
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape,groups", [((8, 128, 32, 32), 32), ((8, 256, 4, 4), 32),
+                                          ((2, 24, 5, 7), 4)])
+def test_group_norm_bwd_kernel_matches_plain(cuda, dtype, silu, shape, groups):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3 + 0.5).to(dtype)
+    gamma = torch.randn(shape[1], generator=g, device=cuda) + 1
+    beta = torch.randn(shape[1], generator=g, device=cuda)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    _, mean, rstd = group_norm_silu_plain(x, gamma, beta, groups, 1e-6, silu, dtype)
+    args = (x, dy, gamma, beta, mean, rstd, groups, silu)
+    before = group_norm_bwd_kernel.launches
+    got = group_norm_bwd_kernel(*args)
+    assert group_norm_bwd_kernel.launches == before + 1
+    want = group_norm_silu_bwd_plain(*args)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
+    for a, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, w, atol=5e-5 + 1e-5 * w.abs().max().item(), rtol=0)
+    assert all(torch.equal(a, w) for a, w in zip(got, group_norm_bwd_kernel(*args)))
+
+
+def test_autograd_functions_on_the_card_launch_the_backward_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(2, 64, 1, 64, generator=g, device=cuda).requires_grad_(True)
+               for _ in range(3))
+    out = dot_product_attention(q, k, v)
+    assert out.grad_fn is not None
+    before = (attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    out.square().sum().backward()
+    assert (attention_bwd_dq.launches, attention_bwd_dkv.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    x = torch.randn(2, 64, 8, 8, generator=g, device=cuda).requires_grad_(True)
+    w = torch.ones(64, device=cuda, requires_grad=True)
+    y = group_norm_silu(x, w, torch.zeros(64, device=cuda, requires_grad=True), groups=32)
+    assert y.grad_fn is not None
+    before = group_norm_bwd_kernel.launches
+    y.square().sum().backward()
+    assert group_norm_bwd_kernel.launches == before + 1
+    assert x.grad is not None and w.grad is not None
+
+
+def _train_step_run(spec, weights, images, t, noise, device):
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import SchedulerSpec
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_schedule
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.training import (
+        TrainState, make_optimizer, make_train_step)
+
+    model = UNet2D(spec)
+    model.load_state_dict(weights)
+    tx = make_optimizer("adam", lr=1e-3)
+    state = TrainState.create(model.to(device), tx)
+    step = make_train_step(tx, make_schedule(SchedulerSpec(), device), SchedulerSpec())
+    metrics = step(state, images.to(device), timesteps=t.to(device), noise=noise.to(device))
+    return (metrics["loss"].item(), metrics["grad_norm"].item(),
+            [p.grad.detach().cpu() for p in state.params])
+
+
+def test_train_step_on_card_matches_cpu_and_repeats_bitwise(cuda):
+    from group_attribution_for_diffusion_models_tpu_torch.cli.common import config_for
+    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+
+    spec = config_for("synthetic_32x8_big").unet
+    weights = build_unet(spec, seed=0).state_dict()
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.uniform(-1, 1, (4, 3, 8, 8)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, 4))
+    noise = torch.from_numpy(rng.standard_normal((4, 3, 8, 8)).astype(np.float32))
+    loss_c, norm_c, grads_c = _train_step_run(spec, weights, images, t, noise, "cpu")
+    loss_g, norm_g, grads_g = _train_step_run(spec, weights, images, t, noise, cuda)
+    _, _, grads_g2 = _train_step_run(spec, weights, images, t, noise, cuda)
+    assert abs(loss_g - loss_c) <= 1e-4 * loss_c
+    assert abs(norm_g - norm_c) <= 1e-4 * norm_c
+    gmax = max(g.abs().max().item() for g in grads_c)
+    assert max((a - w).abs().max().item() for a, w in zip(grads_g, grads_c)) <= 1e-4 * gmax
+    assert all(torch.equal(a, w) for a, w in zip(grads_g, grads_g2))
+
+
+def test_bf16_compute_on_card_tracks_f32(cuda):
+    """compute_dtype=bf16 (f32 parameters): the kernels get bf16 activations,
+    the gradients stay f32 and within 5% of the f32 gradients' norm."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli.common import config_for
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D, build_unet
+
+    spec = config_for("synthetic_32x8_big").unet
+    weights = build_unet(spec, seed=0).state_dict()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 3, 8, 8)).astype(np.float32)).to(cuda)
+    t = torch.tensor([999, 500, 3, 0], device=cuda)
+    grads = {}
+    for dtype in (None, torch.bfloat16):
+        model = UNet2D(spec, compute_dtype=dtype).to(cuda)
+        model.load_state_dict(weights)
+        before = attention_bwd_dq.launches
+        model(x, t).square().mean().backward()
+        assert attention_bwd_dq.launches == before + 6
+        grads[dtype] = torch.cat([p.grad.flatten() for p in model.parameters()])
+        assert grads[dtype].dtype == torch.float32
+    err = (grads[torch.bfloat16] - grads[None]).norm() / grads[None].norm()
+    assert 0 < err.item() <= 0.05
+
+
+def test_train_ensemble_on_card_goes_through_the_kernels(cuda, tmp_path):
+    from group_attribution_for_diffusion_models_tpu_torch.cli import train_ensemble
+
+    attention_kernel.launches = attention_bwd_dq.launches = attention_bwd_dkv.launches = 0
+    group_norm_kernel.launches = group_norm_bwd_kernel.launches = 0
+    summary = train_ensemble.main([
+        "--dataset", "synthetic_32x8_big", "--removal_dist", "shapley", "--num_seeds", "2",
+        "--training_steps", "3", "--outdir", str(tmp_path), "--eval_loss"])
+    assert np.isfinite(summary["losses"]).all() and np.isfinite(summary["eval_losses"]).all()
+    # _big, per forward: 6 attention layers and 31 GroupNorms; 2 members x 3
+    # steps forward and backward, then one eval forward per member.
+    fwd, bwd = 2 * 3 + 2, 2 * 3
+    assert (attention_kernel.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches,
+            group_norm_kernel.launches, group_norm_bwd_kernel.launches) == (
+        6 * fwd, 6 * bwd, 6 * bwd, 31 * fwd, 31 * bwd)
