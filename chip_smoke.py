@@ -12,7 +12,8 @@ Phases (one line each; any failure raises and exits non-zero):
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the CIFAR shapes and a few others, in float32 and bfloat16, with kernel,
    plain and library times (SDPA and F.group_norm + F.silu, forward and
-   autograd backward).
+   autograd backward; for the JL projection, torch.matmul by a materialised
+   R at a D where R fits, as a yardstick).
 3. forward: the full-width CIFAR UNet2D (random weights from a seed) on the
    card against the same model on the CPU, batch 4, float32.
 4. train-step: one `make_train_step` of that model on the card against the
@@ -29,6 +30,14 @@ Phases (one line each; any failure raises and exits non-zero):
    ``cifar-10-batches-py`` layout), full-width CIFAR, 8 shapley members at
    batch 64 with eval loss and 16 DDIM samples each: 2 steps to warm up,
    then 20 steps timed.
+8. trak-step: the full-width CIFAR per-sample gradients (batch 2, one
+   timestep, injected noise) through the vmap rules on the card against the
+   CPU, and against a per-example autograd loop on the card.
+9. main path, TRAK: ``cli.grad_features.main`` on the full-width CIFAR
+   checkpoint and the stand-in (train source, 2 batches of 32 x 10
+   timesteps, projected to 4096; generated samples; the probe and
+   attention-only modes; Journey TRAK), then ``cli.traks.main`` on the
+   store.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies. The last two lines
@@ -70,6 +79,28 @@ TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_WARM_STEPS, TRAIN_BATCH = 8, 20, 2, 64
 TRAIN_SEED_START = 22
 TRAIN_SAMPLES, TRAIN_SAMPLE_STEPS = 16, 20
 CIFAR_TRAIN_IMAGES = 50_000  # the CIFAR-10 training set's size, 5 batches
+# JL projection, kernel vs plain: f32 sums of D terms in other orders (the
+# kernel's chunks of D, the plain version's tiles), held per row to
+# |dY[b, p]| <= JL_RTOL * sum_d |G[b, d]| / sqrt(P). Expected error of a
+# sequential f32 sum of D terms is about 2^-24 * sqrt(D) of that scale.
+JL_RTOL = 1e-6
+JL_SHAPES = [  # (B, D, P), each held against the plain version
+    (3, 70_001, 1000),       # ragged D and P
+    (32, 1 << 20, 4096),     # aligned
+    (32, 393_216, 4096),     # TRAK probe mode (k = 64), one batch
+    (32, 1_579_008, 4096),   # TRAK attn_full mode, one batch
+    (32, 35_746_307, 4096),  # TRAK full mode: the CIFAR U-Net's gradients, one batch
+]
+JL_MAIN = JL_SHAPES[-1]
+JL_IDENTITY_MAX_D = 1 << 20  # identity rows (a 64 x D eye) only up to this D
+JL_PLAIN_TILE_D = 16_384  # the plain version's d-tile on the card (any tile gives the same R)
+JL_LIBRARY_D = 262_144  # a D where R (D, P) f32 fits for the torch.matmul yardstick
+# TRAK per-sample gradients: card vs CPU as the train step (TRAIN_STEP_RTOL);
+# the vmap path vs a per-example loop on the card, the same f32 ops on other
+# batch shapes.
+TRAK_LOOP_RTOL = 1e-4
+TRAK_BATCH, TRAK_EXAMPLES, TRAK_TIMESTEPS, TRAK_PROJ = 32, 64, 10, 4096
+TRAK_SAMPLES, TRAK_SAMPLE_STEPS, TRAK_JOURNEY_SAMPLES = 32, 10, 4
 ATTN_SHAPES = [  # (B, Sq, Skv, H, D)
     (64, 256, 256, 1, 256),  # CIFAR down_1 / up_2 at 16x16, sampling batch 64
     (64, 16, 16, 1, 256),    # CIFAR mid block at 4x4
@@ -144,27 +175,25 @@ def write_cifar_standin(root: str, n: int, seed: int = 0) -> None:
             pickle.dump(entry, f)
 
 
-def launch_counts(ops) -> dict:
-    return {"attention_fwd": ops.attention_kernel.launches,
-            "attention_bwd_dq": ops.attention_bwd_dq.launches,
-            "attention_bwd_dkv": ops.attention_bwd_dkv.launches,
-            "group_norm_fwd": ops.group_norm_kernel.launches,
-            "group_norm_bwd": ops.group_norm_bwd_kernel.launches}
-
-
 def reset_counts(ops) -> None:
-    for fn in (ops.attention_kernel, ops.attention_bwd_dq, ops.attention_bwd_dkv,
-               ops.group_norm_kernel, ops.group_norm_bwd_kernel):
+    for fn in ops.KERNELS.values():
         fn.launches = 0
 
 
-def unet_counts(forwards: int, backwards: int) -> dict:
+def unet_counts(forwards: int, backwards: int, jl: int = 0, attention_only: int = 0) -> dict:
     """Launches of the CIFAR U-Net: 6 attention layers and 51 GroupNorms
     (22 resnets x 2, 6 attention pre-norms, conv_norm_out) per forward, and
-    one backward launch of each per backward (two attention passes)."""
-    return {"attention_fwd": 6 * forwards, "attention_bwd_dq": 6 * backwards,
-            "attention_bwd_dkv": 6 * backwards, "group_norm_fwd": 51 * forwards,
-            "group_norm_bwd": 51 * backwards}
+    one backward launch of each per backward (two attention passes); a
+    vmapped forward and backward counts once. `jl` JL projections.
+    `attention_only` backwards take the gradient of the attention
+    projections alone (TRAK's probe and attn_full modes): autograd then
+    skips the 7 GroupNorms before the first attention block's projections
+    (down block 0's two resnets, down block 1's first resnet and the
+    attention's pre-norm)."""
+    gn_bwd = 51 * backwards + 44 * attention_only
+    return {"attention_fwd": 6 * forwards, "attention_bwd_dq": 6 * (backwards + attention_only),
+            "attention_bwd_dkv": 6 * (backwards + attention_only),
+            "group_norm_fwd": 51 * forwards, "group_norm_bwd": gn_bwd, "jl_projection": jl}
 
 
 def check_attention(torch, F, ops, dev):
@@ -349,6 +378,196 @@ def check_group_norm_bwd(torch, F, ops, dev):
     return rows
 
 
+def check_jl_projection(torch, ops, dev):
+    """The JL kernel against its plain version at every shape of JL_SHAPES
+    (the three TRAK modes' among them), two runs bitwise, seeds distinct,
+    identity rows bitwise up to JL_IDENTITY_MAX_D; kernel and plain times at
+    each shape. Returns the JSON row's numbers, all at the main path's shape
+    JL_MAIN but the library yardstick's, which carry their own shape."""
+    def rows_err(got, want, g, p):
+        err = (got - want).abs().amax(dim=1)
+        limit = JL_RTOL * g.float().abs().sum(dim=1) / math.sqrt(p)
+        return err.max().item(), bool((err <= limit).all())
+
+    def timed_once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    out = {}
+    for (b, d, p) in JL_SHAPES:
+        g = torch.randn(b, d, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+        got = ops.jl_project_kernel(g, p, seed=3)
+        # One timed call: at D = 35.7M the plain version takes seconds.
+        want, plain_ms = timed_once(
+            lambda: ops.jl_project_plain(g, p, seed=3, tile_d=JL_PLAIN_TILE_D))
+        err, ok = rows_err(got, want, g, p)
+        same = torch.equal(got, ops.jl_project_kernel(g, p, seed=3))
+        other = not torch.equal(got, ops.jl_project_kernel(g, p, seed=4))
+        del want
+        exact = None
+        if d <= JL_IDENTITY_MAX_D:
+            eye = torch.eye(min(b * 16, 64), d, device=dev)
+            exact = torch.equal(ops.jl_project_kernel(eye, p, seed=5),
+                                ops.jl_project_plain(eye, p, seed=5))
+            del eye
+        ms = cuda_ms(torch, lambda: ops.jl_project_kernel(g, p), iters=3)
+        bms, by = bound(b * d * 4 + b * p * 4, 2.0 * b * d * p, "float32")
+        log(f"[kernels] jl_projection B={b} D={d} P={p} f32: max_abs_err={err:.3g} "
+            f"(tol {JL_RTOL} * |G_b|_1 / sqrt(P) per row), identity rows bitwise="
+            f"{'not run' if exact is None else exact}, bitwise repeatable={same}, other seed "
+            f"differs={other}; kernel_ms={ms:.4f} ({2.0 * b * d * p / ms / 1e9:.2f} TFLOP/s) "
+            f"plain_ms={plain_ms:.4f} (one call, d-tile {JL_PLAIN_TILE_D}) "
+            f"bound_ms={bms:.4f} ({by})")
+        if not (ok and same and other and exact is not False):
+            raise AssertionError(f"JL kernel disagrees at {(b, d, p)}: {err}, identity "
+                                 f"{exact}, repeatable {same}, seeds {other}")
+        if (b, d, p) == JL_MAIN:
+            out = dict(shape=[b, d, p], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by)
+            lib_g = g[:, :JL_LIBRARY_D].contiguous()
+            r = ops.rademacher_rows(0, 0, JL_LIBRARY_D, p, dev)
+            lib_ms = cuda_ms(torch, lambda: torch.matmul(lib_g, r))
+            lib_kernel_ms = cuda_ms(torch, lambda: ops.jl_project_kernel(lib_g, p))
+            log(f"[kernels] jl_projection B={b} D={JL_LIBRARY_D} P={p}: torch.matmul by a "
+                f"materialised R (TF32 off; the library yardstick, no single call fits the "
+                f"main shape) library_ms={lib_ms:.4f}, kernel_ms={lib_kernel_ms:.4f}")
+            out.update(library_ms=lib_ms, library_shape=[b, JL_LIBRARY_D, p],
+                       library_kernel_ms=lib_kernel_ms)
+            del lib_g, r
+        del g, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_trak_step(torch, np, ops, spec, dev):
+    """Full-width CIFAR per-sample gradients (batch 2, one timestep,
+    injected noise) through the vmap rules: card against CPU, then against
+    a per-example autograd loop on the card; exact launch counts."""
+    from group_attribution_for_diffusion_models_tpu_torch.attributions.methods.trak import (
+        PerSampleGradients)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import (
+        add_noise, make_schedule)
+    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+
+    sched = get_config("cifar").scheduler
+    model = build_unet(spec, seed=2).eval()
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32))
+    t = torch.tensor([500, 500])
+
+    def per_sample(device):
+        grads = PerSampleGradients(model.to(device))
+        acc = torch.zeros((2, grads.dim), device=device)
+        schedule = make_schedule(sched, device)
+        x, n, tt = images.to(device), noise.to(device), t.to(device)
+        grads.accumulate(acc, add_noise(schedule, x, n, tt), tt, n)
+        return acc, schedule
+
+    want, _ = per_sample("cpu")
+    reset_counts(ops)
+    got, schedule = per_sample(dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    got = got.cpu()
+    norm_rel = ((got.norm(dim=1) - want.norm(dim=1)).abs() / want.norm(dim=1)).max().item()
+    gerr = ((got - want).abs().amax(dim=1) / want.abs().amax(dim=1)).max().item()
+    log(f"[trak-step] CIFAR UNet2D per-sample gradients ({got.shape[1]} params) batch 2 f32, "
+        f"card vs CPU: per-sample norm rel err {norm_rel:.3g}, max |dg| / max |g| {gerr:.3g} "
+        f"(tol {TRAIN_STEP_RTOL}); launches {counts}")
+    if not (norm_rel <= TRAIN_STEP_RTOL and gerr <= TRAIN_STEP_RTOL
+            and counts == unet_counts(1, 1)):
+        raise AssertionError("per-sample gradients on the card disagree with the CPU")
+    # The same gradients from one autograd call per example, on the card.
+    params = list(model.parameters())
+    loop = []
+    reset_counts(ops)
+    for b in range(2):
+        x, n, tt = images[b:b + 1].to(dev), noise[b:b + 1].to(dev), t[b:b + 1].to(dev)
+        eps = model(add_noise(schedule, x, n, tt), tt)
+        g = torch.autograd.grad(torch.mean((eps - n) ** 2), params)
+        loop.append(torch.cat([v.reshape(-1) for v in g]).cpu())
+    torch.cuda.synchronize()
+    loop_counts = ops.launch_counts()
+    loop = torch.stack(loop)
+    lerr = ((got - loop).abs().amax(dim=1) / loop.abs().amax(dim=1)).max().item()
+    log(f"[trak-step] vmap path vs a per-example autograd loop on the card: max |dg| / max |g| "
+        f"{lerr:.3g} (tol {TRAK_LOOP_RTOL}); loop launches {loop_counts}")
+    if not (lerr <= TRAK_LOOP_RTOL and loop_counts == unet_counts(2, 2)):
+        raise AssertionError("the vmap path disagrees with the per-example loop on the card")
+    model.cpu()
+
+
+def check_trak_path(torch, np, ops, grad_features, traks, model_dir: str, root: str,
+                    card: str):
+    """grad_features.main at full width in each source and mode, then
+    traks.main on the store; each call between a counter reset and a read,
+    with the launches the code implies asserted. Returns the summed counts."""
+    store = os.path.join(root, "trak", "feats.npz")
+    common = ["--dataset", "cifar", "--load", model_dir, "--proj_dim", str(TRAK_PROJ),
+              "--num_timesteps", str(TRAK_TIMESTEPS), "--batch_size", str(TRAK_BATCH),
+              "--num_inference_steps", str(TRAK_SAMPLE_STEPS), "--device", "cuda"]
+    n_batches = TRAK_EXAMPLES // TRAK_BATCH
+    runs = [  # (label, extra argv, store, expected launches)
+        ("train full", ["--source", "train", "--max_examples", str(TRAK_EXAMPLES)], store,
+         {k: n_batches * v for k, v in unet_counts(TRAK_TIMESTEPS, TRAK_TIMESTEPS,
+                                                     jl=1).items()}),
+        ("generated full", ["--source", "generated", "--n_samples", str(TRAK_SAMPLES)], store,
+         unet_counts(TRAK_SAMPLE_STEPS + TRAK_TIMESTEPS, TRAK_TIMESTEPS, jl=1)),
+        ("train probe", ["--source", "train", "--max_examples", str(TRAK_BATCH),
+                         "--grad_mode", "probe"], os.path.join(root, "trak", "probe.npz"),
+         unet_counts(TRAK_TIMESTEPS, 0, jl=1, attention_only=TRAK_TIMESTEPS)),
+        ("train attn_full", ["--source", "train", "--max_examples", str(TRAK_BATCH),
+                             "--grad_mode", "attn_full"], os.path.join(root, "trak", "attn.npz"),
+         unet_counts(TRAK_TIMESTEPS, 0, jl=1, attention_only=TRAK_TIMESTEPS)),
+        ("generated_journey full", ["--source", "generated_journey", "--n_samples",
+                                    str(TRAK_JOURNEY_SAMPLES)],
+         os.path.join(root, "trak", "journey.npz"),
+         unet_counts(2 * TRAK_SAMPLE_STEPS, TRAK_SAMPLE_STEPS, jl=1)),
+    ]
+    total = unet_counts(0, 0)
+    for label, extra, path, want in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        summary = grad_features.main(common + extra + ["--save_path", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        secs = summary["batch_seconds"]
+        rows = summary["features_shape"][0]
+        log(f"[trak] grad_features {label}: features {summary['features_shape']} from "
+            f"{summary['grad_dim']} gradient coordinates, f32 on {card}: s/batch "
+            f"{', '.join(f'{x:.3f}' for x in secs)} (last: "
+            f"{min(rows, TRAK_BATCH) / secs[-1]:.2f} examples/s), sampling "
+            f"{summary['sample_seconds']:.3f} s, call {wall:.3f} s, peak {peak_gib:.2f} GiB, "
+            f"launches {counts}")
+        if counts != want:
+            raise AssertionError(f"TRAK path ({label}) launches {counts}, expected {want}")
+        feats = np.load(path)["train_features" if "train" in label else "gen_features"]
+        if not (np.isfinite(feats).all() and feats.std() > 0):
+            raise AssertionError(f"TRAK path ({label}): non-finite or constant features")
+        total = {k: total[k] + counts[k] for k in total}
+    reset_counts(ops)
+    attrs = traks.main(["--feature_store", store, "--save_dir", os.path.join(root, "trak",
+                                                                              "attrs")])
+    if ops.launch_counts() != unet_counts(0, 0):
+        raise AssertionError("traks launched a kernel")
+    for method, a in attrs.items():
+        log(f"[trak] traks {method}: {a.shape[0]} group attributions, finite="
+            f"{bool(np.isfinite(a).all())}, range [{a.min():.4g}, {a.max():.4g}]")
+        if not (a.shape == (10,) and np.isfinite(a).all()):
+            raise AssertionError(f"traks {method}: attributions {a}")
+    return total
+
+
 def check_train_step(torch, np, spec, dev):
     """One train step of the full-width CIFAR U-Net, card against CPU, from
     the same weights and injected images/timesteps/noise; then a second card
@@ -422,7 +641,7 @@ def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
     summary = train_ensemble.main(argv(os.path.join(root, "run"), TRAIN_STEPS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts(ops)
+    counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     m, steps = TRAIN_MEMBERS, TRAIN_STEPS
     member_steps = m * steps
@@ -494,7 +713,7 @@ def run(torch, tmp: str) -> int:
 
     from group_attribution_for_diffusion_models_tpu_torch import ops
     from group_attribution_for_diffusion_models_tpu_torch.cli import (
-        generate_samples, train_ensemble)
+        generate_samples, grad_features, train_ensemble, traks)
     from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
     from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
     from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
@@ -521,6 +740,7 @@ def run(torch, tmp: str) -> int:
     attn_bwd_rows = check_attention_bwd(torch, F, ops, dev)
     gn_rows = check_group_norm(torch, F, ops, dev)
     gn_bwd_rows = check_group_norm_bwd(torch, F, ops, dev)
+    jl_row = check_jl_projection(torch, ops, dev)
 
     spec = get_config("cifar").unet
     model = build_unet(spec, seed=0).eval()
@@ -532,7 +752,7 @@ def run(torch, tmp: str) -> int:
         model.to(dev)
         reset_counts(ops)
         got = model(x.to(dev), t.to(dev)).cpu()
-    counts = launch_counts(ops)
+    counts = ops.launch_counts()
     err = (got - want).abs().max().item()
     log(f"[forward] CIFAR UNet2D ({sum(p.numel() for p in model.parameters())} params) "
         f"batch 4 f32, card vs CPU: max_abs_err={err:.3g} (tol {CIFAR_FWD_ATOL}), "
@@ -556,7 +776,7 @@ def run(torch, tmp: str) -> int:
     ])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    sample_counts = launch_counts(ops)
+    sample_counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     secs = [summary["batch_seconds"][b] for b in range(N_BATCHES)]
     log(f"[main] generate_samples cifar {N_BATCHES} batches of {BATCH} images x {STEPS} "
@@ -589,9 +809,11 @@ def run(torch, tmp: str) -> int:
         raise AssertionError("sampling on the card disagrees with the CPU")
 
     train_counts = check_training_path(torch, np, ops, train_ensemble, tmp, card)
+    check_trak_step(torch, np, ops, spec, dev)
+    trak_counts = check_trak_path(torch, np, ops, grad_features, traks, model_dir, tmp, card)
 
-    # launches: both main paths, sampling then training.
-    launches = {k: sample_counts[k] + train_counts[k] for k in train_counts}
+    # launches: the three main paths, sampling, training and TRAK.
+    launches = {k: sample_counts[k] + train_counts[k] + trak_counts[k] for k in trak_counts}
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"
@@ -614,6 +836,12 @@ def run(torch, tmp: str) -> int:
         dict(name="group_norm_silu_bwd", route="cuda", source=src + "group_norm_bwd.cu",
              replaces=ref + "group_norm.py:90", launches=launches["group_norm_bwd"],
              **gn_bwd_rows[((64, 128, 32, 32), "float32", True)]),
+        # every number at the main path's shape but library_ms, torch.matmul
+        # by a materialised R, a yardstick at library_shape, beside the
+        # kernel's time there (library_kernel_ms)
+        dict(name="jl_projection", route="cuda", source=src + "jl_projection.cu",
+             replaces=ref + "jl_projection.py:42", launches=launches["jl_projection"],
+             **jl_row),
     ]
     for row in kernels:
         if row["launches"] <= 0:

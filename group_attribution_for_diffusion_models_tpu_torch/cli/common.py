@@ -1,11 +1,11 @@
 """Shared CLI plumbing: workload configs, output layout, common arguments.
 
-Port of the parts of the JAX package's ``cli/common.py`` that sampling and
-the ensemble trainer read: `config_for` (registry lookup, plus the tiny
-``synthetic_*`` specs the tests use), the model-directory layout, the JSONL
-provenance row, the tracker, and `add_common_args` without
+Port of the parts of the JAX package's ``cli/common.py`` that sampling, the
+ensemble trainer and the TRAK features read: `config_for` (registry lookup,
+plus the tiny ``synthetic_*`` specs the tests use), the model-directory
+layout, the JSONL provenance row, the tracker, `add_common_args` without
 ``--vqvae_weights`` (the LDM slice) and ``--profile_dir`` (a torch profiler
-comes later).
+comes later), and `checkpoint_spec`.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..config.registry import (
     WorkloadConfig,
     get_config,
 )
+from ..utils.ckpt import load_meta, load_unet_spec
 from ..utils.trackers import make_tracker
 
 
@@ -95,6 +96,13 @@ def config_for(dataset: str) -> WorkloadConfig:
         ),
         vqvae=vqvae,
     )
+
+
+def checkpoint_spec(model_dir: str, spec: UNetSpec) -> UNetSpec:
+    """The U-Net spec the latest checkpoint under `model_dir` was saved with
+    (its meta.json), which wins where it differs from the workload's `spec`
+    (a pruned model, as the JAX CLIs read it); `spec` where none is saved."""
+    return load_unet_spec(load_meta(model_dir)) or spec
 
 
 def removal_dir_name(

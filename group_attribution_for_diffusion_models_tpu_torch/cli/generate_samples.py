@@ -22,9 +22,9 @@ import torch
 
 from ..diffusion.sampling import make_sampler
 from ..models.unet2d import UNet2D
-from ..utils.ckpt import load_checkpoint, load_meta, load_unet_spec
+from ..utils.ckpt import load_checkpoint
 from ..utils.device import resolve_device
-from .common import add_common_args, config_for
+from .common import add_common_args, checkpoint_spec, config_for
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -67,7 +67,7 @@ def main(argv=None):
     cfg = config_for(args.dataset)
     if cfg.vqvae is not None:
         raise NotImplementedError("latent (VQ-VAE) workloads are not ported yet")
-    spec = load_unet_spec(load_meta(args.load)) or cfg.unet
+    spec = checkpoint_spec(args.load, cfg.unet)
     state = load_checkpoint(args.load)
     model = UNet2D(spec)
     model.load_state_dict(state["ema_params"] if args.use_ema else state["params"])

@@ -39,13 +39,12 @@ from ..diffusion.schedulers import add_noise, make_schedule
 from ..models.unet2d import UNet2D, build_unet
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
 from ..training.state import TrainState, make_optimizer
-from ..utils.ckpt import (
-    get_max_steps, load_checkpoint, load_meta, load_unet_spec, save_checkpoint,
-)
+from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
 from .common import (
     add_common_args,
+    checkpoint_spec,
     config_for,
     model_output_dir,
     provenance_row,
@@ -235,7 +234,7 @@ def main(argv=None):
     spec = cfg.unet
     if args.load:
         # The stored (possibly pruned) architecture replaces the config's.
-        spec = load_unet_spec(load_meta(args.load)) or spec
+        spec = checkpoint_spec(args.load, spec)
     opt = cfg.train.optimizer
     tx = make_optimizer(
         opt.name, lr=args.lr or opt.lr, weight_decay=opt.weight_decay,

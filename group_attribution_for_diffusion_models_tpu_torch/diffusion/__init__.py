@@ -1,4 +1,4 @@
-from .sampling import make_sampler, sample_loop  # noqa: F401
+from .sampling import make_sampler, sample_loop, sample_with_trajectory  # noqa: F401
 from .schedulers import (  # noqa: F401
     ScheduleState,
     add_noise,

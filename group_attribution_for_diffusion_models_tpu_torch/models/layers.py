@@ -46,8 +46,23 @@ def sinusoidal_embedding(
 
 
 class LoRADense(nn.Linear):
-    """Linear layer; the LoRA side branch of the JAX module comes with the
-    text-to-image slice."""
+    """Linear layer with an optional LoRA side branch, as the JAX module:
+    y = x W^T + b + (x @ lora_down) @ lora_up when a (in, r) `lora_down` and a
+    (r, out) `lora_up` are attached. They are non-persistent buffers, None by
+    default, so the state dict keeps the nn.Linear keys; a caller attaches
+    them per call through ``torch.func.functional_call`` (TRAK's probe
+    sketch differentiates `lora_up` alone)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.register_buffer("lora_down", None, persistent=False)
+        self.register_buffer("lora_up", None, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        if self.lora_down is not None:
+            y = y + (x @ self.lora_down.to(y.dtype)) @ self.lora_up.to(y.dtype)
+        return y
 
 
 class Conv1x1(nn.Conv2d):

@@ -22,7 +22,7 @@ import shutil
 import subprocess
 from typing import Dict, Iterable
 
-SOURCES = ("attention", "attention_bwd", "group_norm", "group_norm_bwd")
+SOURCES = ("attention", "attention_bwd", "group_norm", "group_norm_bwd", "jl_projection")
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")

@@ -15,7 +15,10 @@ CUDA tensor, in both directions.
 backward. Its forward and backward each take the plain PyTorch version for a
 CPU tensor and the kernel for a CUDA tensor; there is no fallback between
 them. Under autocast both compute in f32 from the inputs' dtype, as the
-kernels do.
+kernels do. Forward and backward are each a Function with a `vmap` rule, so
+``torch.func.vmap(torch.func.grad(f))`` (TRAK's per-sample gradients, the
+JAX package's ``jax.vmap(jax.grad(f))``) runs the same kernels, one launch
+for the whole vmapped batch.
 """
 
 from __future__ import annotations
@@ -222,26 +225,77 @@ def attention_bwd_kernel(
     return dq, dk, dv
 
 
+def fold_vmapped(info, in_dims, *tensors):
+    """For a `vmap` rule: each tensor with its vmapped dimension moved to the
+    front and merged into its batch dimension, (Bv, B, ...) -> (Bv*B, ...).
+    A tensor that is not vmapped (in_dim None) is broadcast over Bv first."""
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(info.batch_size, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.reshape(-1, *t.shape[2:]))
+    return out
+
+
+def unfold_vmapped(info, t: torch.Tensor) -> torch.Tensor:
+    """(Bv*B, ...) -> (Bv, B, ...): the inverse of `fold_vmapped`."""
+    return t.reshape(info.batch_size, -1, *t.shape[1:])
+
+
 class _Attention(torch.autograd.Function):
+    """softmax(QK^T/sqrt(D))V, transformable by torch.func: under `vmap` the
+    vmapped dimension is folded into the batch, so one kernel launch serves
+    every sample, and the backward is `_AttentionBackward`, which has its own
+    `vmap` rule, so `vmap(grad(f))` runs the backward kernels too."""
+
     @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
+    def forward(q, k, v):
         with torch.autocast(q.device.type, enabled=False):  # f32 inside, as the kernel
             if q.device.type == "cpu":
                 return attention_plain(q, k, v)
             return attention_kernel(q, k, v)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        return _AttentionBackward.apply(*ctx.saved_tensors, do)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        out = _Attention.apply(*fold_vmapped(info, in_dims, q, k, v))
+        return unfold_vmapped(info, out), 0
+
+
+class _AttentionBackward(torch.autograd.Function):
+    """(dq, dk, dv) of `_Attention` for the upstream gradient `do`: both
+    backward kernels on a CUDA tensor, the plain version on a CPU tensor."""
+
+    @staticmethod
+    def forward(q, k, v, do):
         if q.device.type == "cpu":
             return attention_bwd_plain(q, k, v, do)
         return attention_bwd_kernel(q, k, v, do.to(q.dtype))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do):
+        grads = _AttentionBackward.apply(*fold_vmapped(info, in_dims, q, k, v, do))
+        return tuple(unfold_vmapped(info, g) for g in grads), (0, 0, 0)
 
 
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> torch.Tensor:
-    """Scaled dot-product attention on (B, S, H, D), differentiable: the CUDA
-    kernels for CUDA tensors, the plain versions for CPU tensors."""
+    """Scaled dot-product attention on (B, S, H, D), differentiable and
+    transformable by torch.func (`vmap`, `grad`): the CUDA kernels for CUDA
+    tensors, the plain versions for CPU tensors."""
     return _Attention.apply(q, k, v)

@@ -6,14 +6,17 @@ forward ``_fwd_kernel`` (``csrc/group_norm.cu``: f32 group statistics with
 var = E[x^2] - mean^2, (x - mean) * rstd * gamma + beta, an optional SiLU,
 the output in ``out_dtype``, and mean/rstd of shape (B, G) in f32) and the
 backward ``_bwd_kernel`` (``csrc/group_norm_bwd.cu``: dx in x's dtype and
-per-(sample, channel) partial dgamma/dbeta in f32, summed over the batch
-outside the kernel). The JAX package keeps its kernels opt-in on the TPU;
-here they are the path for every CUDA tensor, in both directions.
+per-(sample, channel) partial dgamma/dbeta in f32, which the autograd
+Function sums over the batch). The JAX package keeps its kernels opt-in on
+the TPU; here they are the path for every CUDA tensor, in both directions.
 
 `group_norm_silu` is a `torch.autograd.Function` that saves
 (x, gamma, beta, mean, rstd), as the JAX ``custom_vjp`` does. Its forward
 and backward each take the plain PyTorch version for a CPU tensor and the
-kernel for a CUDA tensor; there is no fallback between them.
+kernel for a CUDA tensor; there is no fallback between them. Forward and
+backward each have a `vmap` rule, so ``torch.func.vmap(torch.func.grad(f))``
+runs the kernels, and the backward kernel's per-(sample, channel) dgamma and
+dbeta partials become the per-sample gradients of gamma and beta.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .attention import fold_vmapped, unfold_vmapped
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,7 +57,8 @@ def group_norm_silu_bwd_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference (dx, dgamma, dbeta) for x of shape (B, C, *spatial), the
     upstream gradient `dy` and the forward's (B, G) mean/rstd, following
-    ``_bwd_kernel``: dx in x's dtype, dgamma and dbeta in f32."""
+    ``_bwd_kernel``: dx in x's dtype; dgamma and dbeta in f32, per (sample,
+    channel), of shape (B, C)."""
     b, c = x.shape[:2]
     cshape = (1, c) + (1,) * (x.ndim - 2)
 
@@ -69,8 +74,8 @@ def group_norm_silu_bwd_plain(
         sig = torch.sigmoid(y)
         g = g * sig * (1.0 + y * (1.0 - sig))
     spatial = tuple(range(2, x.ndim))
-    dgamma = (g * xhat).sum(dim=(0,) + spatial)
-    dbeta = g.sum(dim=(0,) + spatial)
+    dgamma = (g * xhat).sum(dim=spatial)
+    dbeta = g.sum(dim=spatial)
     dyg = g * gam
     n = x[0].numel() // groups
     m1 = dyg.reshape(b, groups, -1).sum(-1) / n
@@ -142,8 +147,8 @@ def group_norm_bwd_kernel(
     mean: torch.Tensor, rstd: torch.Tensor, groups: int, silu: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CUDA GroupNorm(+SiLU) backward kernel: (dx, dgamma, dbeta) as
-    `group_norm_silu_bwd_plain` returns them. dy is taken in x's dtype, as
-    the JAX rule casts it; the (B, C) partials are summed here."""
+    `group_norm_silu_bwd_plain` returns them, dgamma/dbeta per (sample,
+    channel). dy is taken in x's dtype, as the JAX rule casts it."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"group_norm_bwd_kernel takes float32 or bfloat16, got {x.dtype}")
     b, c = x.shape[:2]
@@ -172,7 +177,7 @@ def group_norm_bwd_kernel(
     )
     _build.check(lib, err, "group norm backward kernel")
     group_norm_bwd_kernel.launches += 1
-    return dx, dgamma_p.sum(dim=0), dbeta_p.sum(dim=0)
+    return dx, dgamma_p, dbeta_p
 
 
 group_norm_bwd_kernel.launches = 0
@@ -193,25 +198,80 @@ def group_norm_silu_forward(
 
 
 class _GroupNormSiLU(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, gamma, beta, groups, eps, silu, out_dtype):
-        with torch.autocast(x.device.type, enabled=False):  # f32 statistics
-            out, mean, rstd = group_norm_silu_forward(
-                x, gamma, beta, groups=groups, eps=eps, silu=silu, out_dtype=out_dtype
-            )
-        ctx.save_for_backward(x, gamma, beta, mean, rstd)
-        ctx.groups, ctx.silu = groups, silu
-        return out
+    """GroupNorm(+SiLU) returning (out, mean, rstd), transformable by
+    torch.func: under `vmap` the vmapped dimension is folded into the batch
+    (one launch for every sample), and the backward is
+    `_GroupNormSiLUBackward`, which has its own `vmap` rule."""
 
     @staticmethod
-    def backward(ctx, dout):
+    def forward(x, gamma, beta, groups, eps, silu, out_dtype):
+        with torch.autocast(x.device.type, enabled=False):  # f32 statistics
+            return group_norm_silu_forward(
+                x, gamma, beta, groups=groups, eps=eps, silu=silu, out_dtype=out_dtype
+            )
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, gamma, beta, groups, _, silu, _ = inputs
+        _, mean, rstd = output
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.set_materialize_grads(False)  # no zero gradients made for mean/rstd
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.groups, ctx.silu = groups, silu
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _drstd):
         x, gamma, beta, mean, rstd = ctx.saved_tensors
-        args = (x, dout.to(x.dtype), gamma, beta, mean, rstd, ctx.groups, ctx.silu)
+        dx, dgamma, dbeta = _GroupNormSiLUBackward.apply(
+            x, dout.to(x.dtype), gamma, beta, mean, rstd, ctx.groups, ctx.silu)
+        # Per-(sample, channel) partials summed over the batch: under vmap,
+        # over each vmapped sample's own batch.
+        return (dx, dgamma.sum(dim=0).to(gamma.dtype), dbeta.sum(dim=0).to(beta.dtype),
+                None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, gamma, beta, groups, eps, silu, out_dtype):
+        _vmapped_affine_unsupported(in_dims[1:3])
+        (xf,) = fold_vmapped(info, in_dims[:1], x)
+        out = _GroupNormSiLU.apply(xf, gamma, beta, groups, eps, silu, out_dtype)
+        return tuple(unfold_vmapped(info, t) for t in out), (0, 0, 0)
+
+
+class _GroupNormSiLUBackward(torch.autograd.Function):
+    """(dx, dgamma, dbeta) of `_GroupNormSiLU`, dgamma/dbeta per (sample,
+    channel): the backward kernel on a CUDA tensor, the plain version on a
+    CPU tensor. Under `vmap` (per-sample gradients: x and dy vmapped, gamma
+    and beta shared) the partials of every vmapped sample come from one
+    launch, (Bv, B, C), which `_GroupNormSiLU.backward` sums over B."""
+
+    @staticmethod
+    def forward(x, dy, gamma, beta, mean, rstd, groups, silu):
+        args = (x, dy, gamma, beta, mean, rstd, groups, silu)
         if x.device.type == "cpu":
-            dx, dgamma, dbeta = group_norm_silu_bwd_plain(*args)
-        else:
-            dx, dgamma, dbeta = group_norm_bwd_kernel(*args)
-        return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None, None, None, None
+            return group_norm_silu_bwd_plain(*args)
+        return group_norm_bwd_kernel(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("group norm has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dy, gamma, beta, mean, rstd, groups, silu):
+        _vmapped_affine_unsupported(in_dims[2:4])
+        xf, dyf, meanf, rstdf = fold_vmapped(
+            info, (in_dims[0], in_dims[1], in_dims[4], in_dims[5]), x, dy, mean, rstd)
+        out = _GroupNormSiLUBackward.apply(xf, dyf, gamma, beta, meanf, rstdf, groups, silu)
+        return tuple(unfold_vmapped(info, t) for t in out), (0, 0, 0)
+
+
+def _vmapped_affine_unsupported(affine_dims) -> None:
+    if any(d is not None for d in affine_dims):
+        raise NotImplementedError(
+            "group_norm_silu under vmap takes one gamma/beta for every vmapped sample")
 
 
 def group_norm_silu(
@@ -220,5 +280,6 @@ def group_norm_silu(
 ) -> torch.Tensor:
     """GroupNorm over the channel axis of (B, C, *spatial), optionally fused
     with SiLU; statistics in f32 (torch GroupNorm semantics). Differentiable
-    in x, gamma and beta."""
-    return _GroupNormSiLU.apply(x, gamma, beta, groups, eps, silu, out_dtype or x.dtype)
+    in x, gamma and beta, and transformable by torch.func (`vmap` over x,
+    `grad`)."""
+    return _GroupNormSiLU.apply(x, gamma, beta, groups, eps, silu, out_dtype or x.dtype)[0]

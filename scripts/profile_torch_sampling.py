@@ -35,12 +35,14 @@ BATCH, TIMED_STEPS, TIMED_BATCHES, PROFILED_STEPS = 64, 100, 2, 10
 
 def group(name: str) -> str:
     """The kernel group of a device kernel's name (also read by
-    profile_torch_training.py)."""
+    profile_torch_training.py and profile_torch_trak.py)."""
     low = name.lower()
     for kernel in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                    "group_norm_fwd", "group_norm_bwd"):
         if f"{kernel}_kernel" in name:
             return f"{kernel} (port kernel)"
+    if "jl_partial_kernel" in name or "jl_reduce_kernel" in name:
+        return "jl_projection (port kernel)"
     if "multi_tensor_apply" in low:
         return "optimizer/EMA (foreach)"
     # cuDNN's convolutions: implicit GEMMs, and FFT ones (fft2d, the complex

@@ -123,8 +123,9 @@ def test_group_norm_bwd_plain_matches_pallas_and_xla(shape, groups, silu):
     np.testing.assert_allclose(dx.reshape(b, -1, c), np.asarray(want_pallas[0]), atol=ATOL, rtol=0)
     np.testing.assert_allclose(dx, np.asarray(want_xla[0]), atol=ATOL, rtol=0)
     for a, wp, wx in zip(got[1:], want_pallas[1:], want_xla[1:]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(wp), atol=SUM_ATOL, rtol=0)
-        np.testing.assert_allclose(a.numpy(), np.asarray(wx), atol=SUM_ATOL, rtol=0)
+        assert a.shape == (b, c)  # per (sample, channel), summed by the Function
+        np.testing.assert_allclose(a.sum(dim=0).numpy(), np.asarray(wp), atol=SUM_ATOL, rtol=0)
+        np.testing.assert_allclose(a.sum(dim=0).numpy(), np.asarray(wx), atol=SUM_ATOL, rtol=0)
 
 
 def _leaves(*arrays):

@@ -7,7 +7,10 @@ Tolerances (atol, rtol): float32 (5e-5, 1e-5), for summation order only;
 bfloat16 (1e-2, 2**-7): both sides round f32 results that differ in the
 last bits to bf16, so they may land one bf16 ulp (2**-7 relative) apart.
 dgamma/dbeta sum B*HW terms: atol 5e-5 + 1e-5 * max |ref|. The train step:
-relative 1e-4 on the loss and the gradients' norm, f32 with TF32 off.
+relative 1e-4 on the loss and the gradients' norm, f32 with TF32 off. The JL
+projection sums D terms in another order than its plain version: per row
+|dY| <= 1e-6 * sum_d |G[b, d]| / sqrt(P) (the plain version rounds bf16 G to
+f32 as the kernel does); identity rows are exact.
 """
 
 import numpy as np
@@ -29,6 +32,9 @@ from group_attribution_for_diffusion_models_tpu_torch.ops import (
     group_norm_silu,
     group_norm_silu_bwd_plain,
     group_norm_silu_plain,
+    jl_project,
+    jl_project_kernel,
+    jl_project_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -298,3 +304,59 @@ def test_train_ensemble_on_card_goes_through_the_kernels(cuda, tmp_path):
     assert (attention_kernel.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches,
             group_norm_kernel.launches, group_norm_bwd_kernel.launches) == (
         6 * fwd, 6 * bwd, 6 * bwd, 31 * fwd, 31 * bwd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,p", [(32, 1 << 18, 4096), (3, 70_001, 1000), (2, 5, 33),
+                                   (40, 9_000, 513)])
+def test_jl_kernel_matches_plain(cuda, dtype, b, d, p):
+    g = torch.randn(b, d, generator=torch.Generator(device=cuda).manual_seed(7),
+                    device=cuda).to(dtype)
+    before = jl_project_kernel.launches
+    got = jl_project_kernel(g, p, seed=3)
+    torch.cuda.synchronize()
+    assert jl_project_kernel.launches == before + 1 and got.dtype == torch.float32
+    want = jl_project_plain(g, p, seed=3)
+    limit = 1e-6 * g.float().abs().sum(dim=1, keepdim=True) / p ** 0.5
+    assert ((got - want).abs() <= limit).all()
+    assert torch.equal(got, jl_project_kernel(g, p, seed=3))  # no atomics
+    assert not torch.equal(got, jl_project_kernel(g, p, seed=4))
+    assert torch.equal(jl_project(g, p, seed=3), got)
+
+
+def test_jl_kernel_identity_rows_are_r_exactly(cuda):
+    eye = torch.eye(48, 4000, device=cuda)
+    assert torch.equal(jl_project_kernel(eye, 777, seed=5), jl_project_plain(eye, 777, seed=5))
+    with pytest.raises(ValueError, match="contiguous"):
+        jl_project_kernel(torch.zeros(8, 4, device=cuda).t(), 16)
+
+
+def test_per_sample_gradients_on_card_batch_the_kernels(cuda):
+    """vmap(grad) through the kernels' vmap rules: one launch per op for the
+    whole batch, and the gradients of a per-example loop on the card."""
+    from group_attribution_for_diffusion_models_tpu_torch.attributions.methods.trak import (
+        PerSampleGradients)
+    from group_attribution_for_diffusion_models_tpu_torch.cli.common import config_for
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import add_noise, make_schedule
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import SchedulerSpec
+    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+
+    model = build_unet(config_for("synthetic_32x8_big").unet, seed=0).to(cuda).eval()
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1, 1, (3, 3, 8, 8)).astype(np.float32)).to(cuda)
+    n = torch.from_numpy(rng.standard_normal((3, 3, 8, 8)).astype(np.float32)).to(cuda)
+    t = torch.tensor([999, 500, 3], device=cuda)
+    schedule = make_schedule(SchedulerSpec(), cuda)
+    x_t = add_noise(schedule, x, n, t)
+    grads = PerSampleGradients(model)
+    acc = torch.zeros((3, grads.dim), device=cuda)
+    before = (attention_bwd_dq.launches, group_norm_bwd_kernel.launches)
+    grads.accumulate(acc, x_t, t, n)
+    assert (attention_bwd_dq.launches - before[0], group_norm_bwd_kernel.launches - before[1]) \
+        == (6, 31)
+    params = list(model.parameters())
+    for b in range(3):
+        eps = model(x_t[b:b + 1], t[b:b + 1])
+        want = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+            torch.mean((eps - n[b:b + 1]) ** 2), params)])
+        assert (acc[b] - want).abs().max() <= 1e-4 * want.abs().max()
