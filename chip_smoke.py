@@ -60,6 +60,9 @@ import time
 # float32 outside the tensor cores and of bf16 on them (dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# The attention backward kernels run on the tensor cores: bf16 at 989 TFLOP/s,
+# f32 as three TF32 products (495 TFLOP/s) for each f32 one.
+TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # (atol, rtol) of kernel against plain version; see tests/test_torch_kernels_cuda.py.
 TOL = {"float32": (5e-5, 1e-5), "bfloat16": (1e-2, 2**-7)}
 # dgamma/dbeta: f32 sums over B*HW terms in another order, |d| <= atol + rtol max|ref|.
@@ -107,6 +110,16 @@ ATTN_SHAPES = [  # (B, Sq, Skv, H, D)
     (8, 1024, 1024, 14, 32),  # celeba level 1
     (2, 130, 77, 2, 40),     # ragged queries and keys, ragged head dim
 ]
+ATTN_BWD_EXTRA = [  # backward only: the registry's other head dims, held and repeated
+    (4, 256, 256, 4, 40),    # miniSD / imagenette, 8 heads at 40
+    (4, 64, 77, 8, 80),      # cross-attention on 77 text tokens at 80
+    (4, 64, 64, 2, 160),     # 160, a D that is not a multiple of 16 per half
+    (8, 64, 64, 2, 16),      # the tiny configs' mid block
+    (4, 256, 256, 2, 64),    # _big
+]
+# Products the backward kernels form, in units of B*H*Sq*Skv*D x 2 FLOPs: the
+# dQ pass S, P.V (the forward again), S, dP, dS.K; the dK/dV pass S, dP, dV, dK.
+BWD_UNITS = 18
 GN_SHAPES = [(64, 128, 32, 32), (64, 256, 4, 4)]  # CIFAR levels 0 and 3, G=32
 STEPS, BATCH, N_BATCHES = 100, 64, 2
 
@@ -137,6 +150,21 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time of fn's kernels per call, from torch.profiler: an event-timed
+    loop of a call whose host side outlasts its kernels reads the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return total / 1e3 / iters
+
+
 def compare(got, want, dtype: str):
     """(max abs error, within tolerance) of a kernel output against its
     plain version: |got - want| <= atol + rtol |want| everywhere."""
@@ -153,9 +181,9 @@ def compare_sum(got, want):
     return err, err <= atol + rtol * want.float().abs().max().item()
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, dtype: str, rates=PEAK_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / rates[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -267,15 +295,52 @@ def check_group_norm(torch, F, ops, dev):
     return rows
 
 
+def check_attention_bwd_once(torch, ops, q, k, v, do, name):
+    """Both backward passes against their plain versions, and a second run
+    of each bit for bit: (dq_cmp, dkv_cmp, same, (lse, delta))."""
+    dq, lse, delta = ops.attention_bwd_dq(q, k, v, do)
+    dk, dv = ops.attention_bwd_dkv(q, k, v, do, lse, delta)
+    want_dq, want_lse, want_delta = ops.attention_bwd_dq_plain(q, k, v, do)
+    want_dk, want_dv = ops.attention_bwd_dkv_plain(q, k, v, do, want_lse, want_delta)
+    torch.cuda.synchronize()
+    dq_cmp = [compare(dq, want_dq, name), compare(lse, want_lse, "float32"),
+              compare(delta, want_delta, "float32")]
+    dkv_cmp = [compare(dk, want_dk, name), compare(dv, want_dv, name)]
+    dq2, lse2, delta2 = ops.attention_bwd_dq(q, k, v, do)
+    same = (all(torch.equal(x, y) for x, y in zip((dq, lse, delta), (dq2, lse2, delta2)))
+            and all(torch.equal(x, y) for x, y in zip(
+                (dk, dv), ops.attention_bwd_dkv(q, k, v, do, lse, delta))))
+    return dq_cmp, dkv_cmp, same, (lse, delta)
+
+
 def check_attention_bwd(torch, F, ops, dev):
-    """Both backward passes against their plain versions. Returns per-pass
+    """Both backward passes against their plain versions, at ATTN_SHAPES
+    (timed) and ATTN_BWD_EXTRA (held and repeated only). Returns per-pass
     rows {(shape, dtype): {"dq": {...}, "dkv": {...}}}. The least work of the
     whole backward is 10*B*H*Sq*Skv*D FLOPs (S once, then P.V, dO.V^T, dS.K,
     dS^T.Q, P^T.dO); of the dQ pass alone 6 (S, dO.V^T, dS.K, with delta =
     rowsum(P * dP)), of the dK/dV pass alone 8. The JAX kernels' scheme does
-    16, these kernels 18."""
-    log("[kernels] attention_bwd least work 10*B*H*Sq*Skv*D FLOPs (the bound below); "
-        "the JAX kernels' scheme does 16*B*H*Sq*Skv*D, these kernels 18")
+    16, these kernels BWD_UNITS. The bound counts the least work at the tensor
+    cores' rate for the kernels' route (TC_FLOPS)."""
+    log(f"[kernels] attention_bwd least work 10*B*H*Sq*Skv*D FLOPs (the bound below, at "
+        f"{TC_FLOPS['float32'] / 1e12:.0f} TFLOP/s in f32 (3 TF32 products at 495) and "
+        f"{TC_FLOPS['bfloat16'] / 1e12:.0f} in bf16, on the tensor cores); the JAX kernels' "
+        f"scheme does 16*B*H*Sq*Skv*D, these kernels {BWD_UNITS}")
+    for (b, sq, skv, h, d) in ATTN_BWD_EXTRA:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(3)
+            q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                           for s in (sq, skv, skv, sq))
+            dq_cmp, dkv_cmp, same, _ = check_attention_bwd_once(torch, ops, q, k, v, do, name)
+            err = max(e for e, _ in dq_cmp + dkv_cmp)
+            log(f"[kernels] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
+                f"max_abs_err dq={dq_cmp[0][0]:.3g} lse={dq_cmp[1][0]:.3g} "
+                f"delta={dq_cmp[2][0]:.3g} dk={dkv_cmp[0][0]:.3g} dv={dkv_cmp[1][0]:.3g} "
+                f"(tol {TOL[name]}), bitwise repeatable={same}")
+            if not (all(ok for _, ok in dq_cmp + dkv_cmp) and same):
+                raise AssertionError(f"attention backward kernels disagree: {err}, "
+                                     f"repeatable={same}")
     rows = {}
     for (b, sq, skv, h, d) in ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -283,16 +348,8 @@ def check_attention_bwd(torch, F, ops, dev):
             g = torch.Generator(device=dev).manual_seed(3)
             q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
                            for s in (sq, skv, skv, sq))
-            dq, lse, delta = ops.attention_bwd_dq(q, k, v, do)
-            dk, dv = ops.attention_bwd_dkv(q, k, v, do, lse, delta)
-            want_dq, want_lse, want_delta = ops.attention_bwd_dq_plain(q, k, v, do)
-            want_dk, want_dv = ops.attention_bwd_dkv_plain(q, k, v, do, want_lse, want_delta)
-            torch.cuda.synchronize()
-            dq_cmp = [compare(dq, want_dq, name), compare(lse, want_lse, "float32"),
-                      compare(delta, want_delta, "float32")]
-            dkv_cmp = [compare(dk, want_dk, name), compare(dv, want_dv, name)]
-            again = ops.attention_bwd_kernel(q, k, v, do)
-            same = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+            dq_cmp, dkv_cmp, same, (lse, delta) = check_attention_bwd_once(
+                torch, ops, q, k, v, do, name)
             dq_ms = cuda_ms(torch, lambda: ops.attention_bwd_dq(q, k, v, do))
             dkv_ms = cuda_ms(torch, lambda: ops.attention_bwd_dkv(q, k, v, do, lse, delta))
             dq_plain = cuda_ms(torch, lambda: ops.attention_bwd_dq_plain(q, k, v, do))
@@ -304,11 +361,16 @@ def check_attention_bwd(torch, F, ops, dev):
             gt = do.transpose(1, 2)
             lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
                 out, (qt, kt, vt), gt, retain_graph=True))
+            lib_dev = device_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), gt, retain_graph=True))
+            kern_dev = device_ms(torch, lambda: ops.attention_bwd_kernel(q, k, v, do))
             es, unit = q.element_size(), b * h * sq * skv * d
             stats = 2 * b * h * sq * 4
-            whole, by = bound((3 * sq + 4 * skv) * b * h * d * es, 10.0 * unit, name)
-            dq_b, dq_by = bound((3 * sq + 2 * skv) * b * h * d * es + stats, 6.0 * unit, name)
-            dkv_b, dkv_by = bound((2 * sq + 4 * skv) * b * h * d * es + stats, 8.0 * unit, name)
+            whole, by = bound((3 * sq + 4 * skv) * b * h * d * es, 10.0 * unit, name, TC_FLOPS)
+            dq_b, dq_by = bound((3 * sq + 2 * skv) * b * h * d * es + stats, 6.0 * unit, name,
+                                TC_FLOPS)
+            dkv_b, dkv_by = bound((2 * sq + 4 * skv) * b * h * d * es + stats, 8.0 * unit, name,
+                                  TC_FLOPS)
             err = max(e for e, _ in dq_cmp + dkv_cmp)
             log(f"[kernels] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
                 f"max_abs_err dq={dq_cmp[0][0]:.3g} lse={dq_cmp[1][0]:.3g} "
@@ -316,8 +378,11 @@ def check_attention_bwd(torch, F, ops, dev):
                 f"(tol {TOL[name]}), bitwise repeatable={same}; kernel_ms dq={dq_ms:.4f} "
                 f"dkv={dkv_ms:.4f} sum={dq_ms + dkv_ms:.4f}; plain_ms dq={dq_plain:.4f} "
                 f"dkv={dkv_plain:.4f} whole={plain_ms:.4f}; library_ms={lib_ms:.4f} "
-                f"(SDPA autograd backward); bound_ms whole={whole:.4f} ({by}) "
-                f"dq={dq_b:.4f} ({dq_by}) dkv={dkv_b:.4f} ({dkv_by})")
+                f"(SDPA autograd backward), ratio_to_sdpa={(dq_ms + dkv_ms) / lib_ms:.3f}; "
+                f"device time (profiler) kernels={kern_dev:.4f} SDPA backward={lib_dev:.4f} "
+                f"ratio={kern_dev / lib_dev:.3f}; "
+                f"bound_ms whole={whole:.4f} ({by}) dq={dq_b:.4f} ({dq_by}) "
+                f"dkv={dkv_b:.4f} ({dkv_by})")
             if not (all(ok for _, ok in dq_cmp + dkv_cmp) and same):
                 raise AssertionError(f"attention backward kernels disagree: {err}, "
                                      f"repeatable={same}")

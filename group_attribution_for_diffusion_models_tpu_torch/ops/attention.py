@@ -130,7 +130,17 @@ def _checked(name, q, k, v, *more):
         raise ValueError(f"head dim {d} must be a multiple of 8 and at most 256")
     if not (q.is_cuda and all(t.device == q.device for t in (k, v, *more))):
         raise ValueError(f"{name} needs its tensors on one CUDA device")
-    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, *more))
+    return tuple(t if t.stride(-1) == 1 and _rows_aligned(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (q, k, v, *more))
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every (b, s, h) row of `t` starts on 16 bytes, as the backward
+    kernels' 16-byte copies need (a stride over a size-1 dimension is unused)."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) * es % 16 == 0 for i in range(3) if t.shape[i] > 1)
 
 
 def _strides(*tensors):

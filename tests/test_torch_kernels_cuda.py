@@ -149,11 +149,19 @@ def test_generate_samples_on_card_goes_through_the_kernels(cuda, tmp_path):
         assert (attention_kernel.launches, group_norm_kernel.launches) == (2 * 6, 2 * 31)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,sq,skv,h,d", [
+# The backward's shapes: the registry's head dims (16, 32, 40, 64, 80, 160,
+# 256), ragged Sq and Skv (1, 17, 77, 130, 257) on either side, and TRAK's
+# folded mid block (B*H = 512).
+BWD_SHAPES = [
     (4, 256, 256, 1, 256), (4, 16, 16, 1, 256), (1, 1024, 1024, 14, 32),
     (2, 130, 77, 2, 40), (2, 64, 64, 3, 80), (1, 300, 200, 2, 160),
-])
+    (3, 17, 1, 2, 16), (2, 1, 77, 4, 40), (2, 257, 130, 1, 256), (1, 77, 257, 2, 160),
+    (2, 130, 17, 8, 80), (2, 33, 45, 2, 64), (512, 16, 16, 1, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,d", BWD_SHAPES)
 def test_attention_bwd_kernels_match_plain(cuda, dtype, b, sq, skv, h, d):
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
@@ -173,6 +181,35 @@ def test_attention_bwd_kernels_match_plain(cuda, dtype, b, sq, skv, h, d):
         torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-5)
     again = attention_bwd_kernel(q, k, v, do)  # no atomics: bitwise repeatable
     assert all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,d", [(4, 256, 256, 1, 256), (2, 130, 77, 2, 40),
+                                          (64, 16, 16, 1, 256)])
+def test_attention_bwd_passes_repeat_bitwise(cuda, dtype, b, sq, skv, h, d):
+    """No atomics and a fixed order of every sum: each pass gives the same
+    bits twice, lse and delta included."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+                   for s in (sq, skv, skv, sq))
+    first = attention_bwd_dq(q, k, v, do)
+    again = attention_bwd_dq(q, k, v, do)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _, lse, delta = first
+    assert torch.equal(torch.cat(attention_bwd_dkv(q, k, v, do, lse, delta)),
+                       torch.cat(attention_bwd_dkv(q, k, v, do, lse, delta)))
+
+
+def test_attention_bwd_copies_rows_off_16_bytes(cuda):
+    """A view whose rows do not start on 16 bytes is copied before the 16-byte
+    loads, with the same gradients."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    flat = torch.randn(4 * 2 * 40 * 3 + 1, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = flat[1:].view(3, 4, 2, 1, 40)  # storage offset of 2 bytes
+    do = torch.randn(4, 2, 1, 40, generator=g, device=cuda).to(torch.bfloat16)
+    atol, rtol = TOL[torch.bfloat16]
+    for got, want in zip(attention_bwd_kernel(q, k, v, do), attention_bwd_plain(q, k, v, do)):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 def test_attention_bwd_reads_strided_inputs(cuda):
