@@ -10,10 +10,13 @@ Phases (one line each; any failure raises and exits non-zero):
 1. card: name and power limit from nvidia-smi; build every CUDA kernel from
    the sources in ``group_attribution_for_diffusion_models_tpu_torch/csrc``.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the CIFAR shapes and a few others, in float32 and bfloat16, with kernel,
-   plain and library times (SDPA and F.group_norm + F.silu, forward and
-   autograd backward; for the JL projection, torch.matmul by a materialised
-   R at a D where R fits, as a yardstick).
+   the CIFAR shapes and a few others (the attention kernels at every head dim
+   the registry reaches, each row repeated bit for bit), in float32 and
+   bfloat16, with kernel, plain and library times (SDPA and F.group_norm +
+   F.silu, forward and autograd backward, the attention rows also by the
+   profiler's device time; for the JL projection, torch.matmul by a
+   materialised R at a D where R fits, as a yardstick), and each bound at the
+   rate of the kernel's route beside the f32 FMA bound.
 3. forward: the full-width CIFAR UNet2D (random weights from a seed) on the
    card against the same model on the CPU, batch 4, float32.
 4. train-step: one `make_train_step` of that model on the card against the
@@ -60,9 +63,11 @@ import time
 # float32 outside the tensor cores and of bf16 on them (dense).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# The attention backward kernels run on the tensor cores: bf16 at 989 TFLOP/s,
-# f32 as three TF32 products (495 TFLOP/s) for each f32 one.
+# The attention kernels run on the tensor cores: bf16 at 989 TFLOP/s, f32 as
+# three TF32 products (495 TFLOP/s) for each f32 one.
 TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+# The JL projection runs on them in bf16: an f32 G as three bf16 pieces.
+JL_FLOPS = {"float32": 989e12 / 3, "bfloat16": 989e12}
 # (atol, rtol) of kernel against plain version; see tests/test_torch_kernels_cuda.py.
 TOL = {"float32": (5e-5, 1e-5), "bfloat16": (1e-2, 2**-7)}
 # dgamma/dbeta: f32 sums over B*HW terms in another order, |d| <= atol + rtol max|ref|.
@@ -95,6 +100,7 @@ JL_SHAPES = [  # (B, D, P), each held against the plain version
     (32, 35_746_307, 4096),  # TRAK full mode: the CIFAR U-Net's gradients, one batch
 ]
 JL_MAIN = JL_SHAPES[-1]
+JL_BF16_SHAPES = [(32, 1 << 20, 4096)]  # bf16 G (one bf16 piece), held as the f32 rows
 JL_IDENTITY_MAX_D = 1 << 20  # identity rows (a 64 x D eye) only up to this D
 JL_PLAIN_TILE_D = 16_384  # the plain version's d-tile on the card (any tile gives the same R)
 JL_LIBRARY_D = 262_144  # a D where R (D, P) f32 fits for the torch.matmul yardstick
@@ -110,7 +116,7 @@ ATTN_SHAPES = [  # (B, Sq, Skv, H, D)
     (8, 1024, 1024, 14, 32),  # celeba level 1
     (2, 130, 77, 2, 40),     # ragged queries and keys, ragged head dim
 ]
-ATTN_BWD_EXTRA = [  # backward only: the registry's other head dims, held and repeated
+ATTN_BWD_EXTRA = [  # the registry's other head dims: forward and backward held and repeated
     (4, 256, 256, 4, 40),    # miniSD / imagenette, 8 heads at 40
     (4, 64, 77, 8, 80),      # cross-attention on 77 text tokens at 80
     (4, 64, 64, 2, 160),     # 160, a D that is not a multiple of 16 per half
@@ -150,9 +156,10 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 10) -> float:
+def device_ms(torch, fn, iters: int = 10, names: list | None = None) -> float:
     """Device time of fn's kernels per call, from torch.profiler: an event-timed
-    loop of a call whose host side outlasts its kernels reads the host."""
+    loop of a call whose host side outlasts its kernels reads the host. The
+    names of the kernels that ran are appended to `names` if given."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -161,8 +168,10 @@ def device_ms(torch, fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    return total / 1e3 / iters
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    if names is not None:
+        names += [e.key for e in events]
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 def compare(got, want, dtype: str):
@@ -225,8 +234,14 @@ def unet_counts(forwards: int, backwards: int, jl: int = 0, attention_only: int 
 
 
 def check_attention(torch, F, ops, dev):
+    """The forward kernel against its plain version at ATTN_SHAPES (timed,
+    with SDPA's time, event-timed and by the profiler) and ATTN_BWD_EXTRA
+    (held only), each row repeated bit for bit. The bound counts the two
+    products at the tensor cores' rate for the kernel's route (TC_FLOPS);
+    the f32 FMA bound of the SIMT kernel it replaced is printed beside it."""
     rows = {}
-    for (b, sq, skv, h, d) in ATTN_SHAPES:
+    for (b, sq, skv, h, d) in ATTN_SHAPES + ATTN_BWD_EXTRA:
+        timed = (b, sq, skv, h, d) in ATTN_SHAPES
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             g = torch.Generator(device=dev).manual_seed(0)
@@ -236,21 +251,37 @@ def check_attention(torch, F, ops, dev):
             want = ops.attention_plain(q, k, v)
             torch.cuda.synchronize()
             err, ok = compare(got, want, name)
-            ms = cuda_ms(torch, lambda: ops.attention_kernel(q, k, v))
-            plain_ms = cuda_ms(torch, lambda: ops.attention_plain(q, k, v))
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            bms, by = bound(nbytes, 4.0 * b * h * sq * skv * d, name)
-            log(f"[kernels] attention B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
-                f"max_abs_err={err:.3g} (tol {TOL[name]}) kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bms:.4f} ({by})")
-            if not ok:
-                raise AssertionError(f"attention kernel disagrees: {err}, tol {TOL[name]}")
-            rows[(b, sq, skv, h, d, name)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bms, bound_by=by)
+            same = torch.equal(got, ops.attention_kernel(q, k, v))
+            head = (f"[kernels] attention B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
+                    f"max_abs_err={err:.3g} (tol {TOL[name]}), bitwise repeatable={same}")
+            if not timed:
+                log(head)
+            else:
+                ms = cuda_ms(torch, lambda: ops.attention_kernel(q, k, v))
+                plain_ms = cuda_ms(torch, lambda: ops.attention_plain(q, k, v))
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                kern_dev = device_ms(torch, lambda: ops.attention_kernel(q, k, v))
+                sdpa_kernels = []
+                lib_dev = device_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                    names=sdpa_kernels)
+                nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+                flops = 4.0 * b * h * sq * skv * d
+                bms, by = bound(nbytes, flops, name, TC_FLOPS)
+                fma, fma_by = bound(nbytes, flops, name)
+                log(f"{head}; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib_ms:.4f} (SDPA) ratio_to_sdpa={ms / lib_ms:.3f}; device "
+                    f"time (profiler) kernel={kern_dev:.4f} SDPA={lib_dev:.4f} "
+                    f"ratio={kern_dev / lib_dev:.3f}; bound_ms={bms:.4f} ({by}, tensor cores) "
+                    f"f32-FMA bound_ms={fma:.4f} ({fma_by}); SDPA's kernels: "
+                    f"{', '.join(n[:80] for n in sdpa_kernels)}")
+                rows[(b, sq, skv, h, d, name)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, bound_by=by, device_ms=kern_dev, library_device_ms=lib_dev,
+                    fma_bound_ms=fma)
+            if not (ok and same):
+                raise AssertionError(f"attention kernel disagrees: {err}, tol {TOL[name]}, "
+                                     f"repeatable={same}")
     return rows
 
 
@@ -445,7 +476,8 @@ def check_group_norm_bwd(torch, F, ops, dev):
 
 def check_jl_projection(torch, ops, dev):
     """The JL kernel against its plain version at every shape of JL_SHAPES
-    (the three TRAK modes' among them), two runs bitwise, seeds distinct,
+    (the three TRAK modes' among them) and, with bf16 G, of JL_BF16_SHAPES;
+    two runs bitwise, seeds distinct,
     identity rows bitwise up to JL_IDENTITY_MAX_D; kernel and plain times at
     each shape. Returns the JSON row's numbers, all at the main path's shape
     JL_MAIN but the library yardstick's, which carry their own shape."""
@@ -463,8 +495,12 @@ def check_jl_projection(torch, ops, dev):
         return out, start.elapsed_time(end)
 
     out = {}
-    for (b, d, p) in JL_SHAPES:
-        g = torch.randn(b, d, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    runs = [(shape, torch.float32) for shape in JL_SHAPES]
+    runs += [(shape, torch.bfloat16) for shape in JL_BF16_SHAPES]
+    for (b, d, p), dtype in runs:
+        name = str(dtype).split(".")[1]
+        g = torch.randn(b, d, generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev).to(dtype)
         got = ops.jl_project_kernel(g, p, seed=3)
         # One timed call: at D = 35.7M the plain version takes seconds.
         want, plain_ms = timed_once(
@@ -475,24 +511,27 @@ def check_jl_projection(torch, ops, dev):
         del want
         exact = None
         if d <= JL_IDENTITY_MAX_D:
-            eye = torch.eye(min(b * 16, 64), d, device=dev)
+            eye = torch.eye(min(b * 16, 64), d, device=dev).to(dtype)
             exact = torch.equal(ops.jl_project_kernel(eye, p, seed=5),
                                 ops.jl_project_plain(eye, p, seed=5))
             del eye
         ms = cuda_ms(torch, lambda: ops.jl_project_kernel(g, p), iters=3)
-        bms, by = bound(b * d * 4 + b * p * 4, 2.0 * b * d * p, "float32")
-        log(f"[kernels] jl_projection B={b} D={d} P={p} f32: max_abs_err={err:.3g} "
+        nbytes, flops = b * d * g.element_size() + b * p * 4, 2.0 * b * d * p
+        bms, by = bound(nbytes, flops, name, JL_FLOPS)
+        fma, fma_by = bound(nbytes, flops, "float32")
+        log(f"[kernels] jl_projection B={b} D={d} P={p} {name}: max_abs_err={err:.3g} "
             f"(tol {JL_RTOL} * |G_b|_1 / sqrt(P) per row), identity rows bitwise="
             f"{'not run' if exact is None else exact}, bitwise repeatable={same}, other seed "
-            f"differs={other}; kernel_ms={ms:.4f} ({2.0 * b * d * p / ms / 1e9:.2f} TFLOP/s) "
+            f"differs={other}; kernel_ms={ms:.4f} ({flops / ms / 1e9:.2f} TFLOP/s) "
             f"plain_ms={plain_ms:.4f} (one call, d-tile {JL_PLAIN_TILE_D}) "
-            f"bound_ms={bms:.4f} ({by})")
+            f"bound_ms={bms:.4f} ({by}, tensor cores, {3 if name == 'float32' else 1} bf16 "
+            f"piece(s)) f32-FMA bound_ms={fma:.4f} ({fma_by})")
         if not (ok and same and other and exact is not False):
             raise AssertionError(f"JL kernel disagrees at {(b, d, p)}: {err}, identity "
                                  f"{exact}, repeatable {same}, seeds {other}")
-        if (b, d, p) == JL_MAIN:
+        if (b, d, p) == JL_MAIN and name == "float32":
             out = dict(shape=[b, d, p], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bms, bound_by=by)
+                       bound_ms=bms, bound_by=by, fma_bound_ms=fma)
             lib_g = g[:, :JL_LIBRARY_D].contiguous()
             r = ops.rademacher_rows(0, 0, JL_LIBRARY_D, p, dev)
             lib_ms = cuda_ms(torch, lambda: torch.matmul(lib_g, r))

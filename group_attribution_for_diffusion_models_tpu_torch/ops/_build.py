@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (nvcc, ``sm_90a``): no PyTorch headers, so a build takes
 seconds. Libraries land in ``csrc/build/`` (git-ignored) under a name that
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads as it is. `build` starts one nvcc per source, all
-together, and waits for every one; `load` builds a single missing library at
-first use.
+carries a hash of the source, of every header it includes with quotes
+(``csrc/mma_common.cuh``), and of the flags, so an edited source or header
+rebuilds and an unchanged one loads as it is. `build` starts one nvcc per
+source, all together, and waits for every one; `load` builds a single
+missing library at first use.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``ops/`` raise when that is not 0.
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Iterable
@@ -49,10 +51,31 @@ def source_path(name: str) -> str:
     return os.path.join(_CSRC, f"{name}.cu")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _inputs(name: str) -> list:
+    """csrc/<name>.cu, then every file it includes with quotes, recursively,
+    each once, in the order first reached."""
+    seen, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        todo += [os.path.join(os.path.dirname(path), m.decode()) for m in _INCLUDE.findall(text)]
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()
-    return os.path.join(_BUILD_DIR, f"lib{name}_{digest[:16]}.so")
+    digest = hashlib.sha256()
+    for path in _inputs(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

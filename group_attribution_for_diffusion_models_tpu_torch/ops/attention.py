@@ -136,17 +136,16 @@ def _checked(name, q, k, v, *more):
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
-    """Whether every (b, s, h) row of `t` starts on 16 bytes, as the backward
-    kernels' 16-byte copies need (a stride over a size-1 dimension is unused)."""
-    es = t.element_size()
+    """Whether every (b, s, h) row of `t` starts on 16 bytes, as the kernels'
+    16-byte copies need (a stride over a size-1 dimension is unused)."""
+    es, shape, stride = t.element_size(), t.shape, t.stride()
     return t.data_ptr() % 16 == 0 and all(
-        t.stride(i) * es % 16 == 0 for i in range(3) if t.shape[i] > 1)
+        stride[i] * es % 16 == 0 for i in range(3) if shape[i] > 1)
 
 
 def _strides(*tensors):
-    return (ctypes.c_int64 * (3 * len(tensors)))(
-        *(t.stride(i) for t in tensors for i in (0, 1, 2))
-    )
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_int64 * len(flat))(*flat)
 
 
 def _stream(t: torch.Tensor):

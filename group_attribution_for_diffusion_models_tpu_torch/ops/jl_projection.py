@@ -15,6 +15,11 @@ int64 arithmetic masked to 32 bits. The stream is the port's own: it cannot
 be the TPU kernel's, nor `jl_project_xla`'s, so a feature store is built
 with one package.
 
+The kernel runs the products on the tensor cores in bf16: each sign is an
+exact bf16 +-1, and an f32 G enters as three bf16 pieces whose sum is G, so
+every product is exact and only the order of the f32 sums differs from the
+plain version's.
+
 `jl_project` takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor; there is no fallback between them.
 """
@@ -35,9 +40,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MASK = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 _D_MIX = 0x27D4EB2F
-# csrc/jl_projection.cu: 512 columns and 32 rows a block, D in tiles of 32.
-_BLOCK_COLS, _BLOCK_ROWS, _TILE_D = 512, 32, 32
-_BLOCKS_PER_SM = 8
+# csrc/jl_projection.cu: 512 columns and 32 rows a block, D in tiles of 64;
+# two blocks are resident on a multiprocessor, and the split of D aims at
+# four waves of them.
+_BLOCK_COLS, _BLOCK_ROWS, _TILE_D = 512, 32, 64
+_BLOCKS_PER_SM = 2 * 4
 
 
 def _fmix32(h: torch.Tensor) -> torch.Tensor:

@@ -51,10 +51,12 @@ def cuda():
     return torch.device("cuda")
 
 
+# The registry's head dims (16, 32, 40, 64, 80, 160, 256), ragged Sq and Skv.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,skv,h,d", [
     (4, 256, 256, 1, 256), (4, 16, 16, 1, 256), (2, 1024, 1024, 14, 32),
     (1, 130, 77, 2, 40), (2, 64, 64, 3, 80), (1, 300, 300, 2, 160),
+    (3, 17, 1, 2, 16), (2, 33, 45, 2, 64), (2, 257, 130, 1, 256), (1, 77, 257, 2, 160),
 ])
 def test_attention_kernel_matches_plain(cuda, dtype, b, sq, skv, h, d):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -67,6 +69,7 @@ def test_attention_kernel_matches_plain(cuda, dtype, b, sq, skv, h, d):
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), attention_plain(q, k, v).float(),
                                atol=atol, rtol=rtol)
+    assert torch.equal(got, attention_kernel(q, k, v))  # no atomics: bitwise repeatable
 
 
 def test_attention_kernel_reads_strided_inputs(cuda):
@@ -345,7 +348,7 @@ def test_train_ensemble_on_card_goes_through_the_kernels(cuda, tmp_path):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,d,p", [(32, 1 << 18, 4096), (3, 70_001, 1000), (2, 5, 33),
-                                   (40, 9_000, 513)])
+                                   (40, 9_000, 513), (70, 100_003, 777)])
 def test_jl_kernel_matches_plain(cuda, dtype, b, d, p):
     g = torch.randn(b, d, generator=torch.Generator(device=cuda).manual_seed(7),
                     device=cuda).to(dtype)
@@ -363,6 +366,8 @@ def test_jl_kernel_matches_plain(cuda, dtype, b, d, p):
 
 def test_jl_kernel_identity_rows_are_r_exactly(cuda):
     eye = torch.eye(48, 4000, device=cuda)
+    assert torch.equal(jl_project_kernel(eye, 777, seed=5), jl_project_plain(eye, 777, seed=5))
+    eye = eye.to(torch.bfloat16)
     assert torch.equal(jl_project_kernel(eye, 777, seed=5), jl_project_plain(eye, 777, seed=5))
     with pytest.raises(ValueError, match="contiguous"):
         jl_project_kernel(torch.zeros(8, 4, device=cuda).t(), 16)

@@ -90,16 +90,28 @@ def _fake_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_compiles_each_source_once_and_rebuilds_on_change(monkeypatch, tmp_path):
-    csrc = _fake_csrc(monkeypatch, tmp_path, {"a": "// a", "b": "// b"})
+    a_text = '#include "common.cuh"\n// a'
+    csrc = _fake_csrc(monkeypatch, tmp_path, {"a": a_text, "b": "// b"})
+    (csrc / "common.cuh").write_text('#include "inner.cuh"\n// shared')
+    (csrc / "inner.cuh").write_text("// inner")
     _fake_nvcc(monkeypatch, tmp_path)
     paths = _build.build(["a", "b"])
     assert sorted(paths) == ["a", "b"]
-    assert open(paths["a"]).read() == "// a"
+    assert open(paths["a"]).read() == a_text
     assert sorted(os.listdir(csrc / "build")) == sorted(os.path.basename(p) for p in paths.values())
     # Unchanged sources are not rebuilt: no compiler is needed to find them.
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     assert _build.build(["a", "b"]) == paths
+    # An edited header, included directly or through another, rebuilds every
+    # source that includes it, and no other.
+    for header in ("inner.cuh", "common.cuh"):
+        before = _build.library_path("a")
+        (csrc / header).write_text(f"// {header}, edited")
+        assert _build.library_path("a") != before
+        assert _build.library_path("b") == paths["b"]
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build(["a"])
     (csrc / "a.cu").write_text("// a, edited")
     assert _build.library_path("a") != paths["a"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
