@@ -16,13 +16,23 @@ Phases (one line each; any failure raises and exits non-zero):
    F.silu, forward and autograd backward, the attention rows also by the
    profiler's device time; for the JL projection, torch.matmul by a
    materialised R at a D where R fits, as a yardstick), and each bound at the
-   rate of the kernel's route beside the f32 FMA bound.
+   rate of the kernel's route beside the f32 FMA bound. The GroupNorm rows
+   are repeated bit for bit and timed by the profiler's device time too.
+   census: every GroupNorm shape of a CIFAR U-Net pass at batch 64, forward
+   and backward kernels held against their plain versions and timed by
+   device time, with the launch-weighted totals per U-Net forward and
+   backward beside their bytes bounds, in float32 and bfloat16.
 3. forward: the full-width CIFAR UNet2D (random weights from a seed) on the
    card against the same model on the CPU, batch 4, float32.
 4. train-step: one `make_train_step` of that model on the card against the
    CPU from the same weights, images, timesteps and noise (batch 8, float32,
    TF32 off): loss, gradient norm and gradients; and two card runs of the
    step agree bit for bit.
+   members: two full-width CIFAR members stacked with `stack_module_state`
+   through `torch.func.vmap(functional_call)`, batch 4 each: the forward and
+   per-member gradients (`vmap(grad)`, each member with a seeded gamma/beta
+   of its own in every GroupNorm) against the member loop on the card, one
+   launch a GroupNorm site for both members.
 5. main path, sampling: a seeded random-init full-width CIFAR checkpoint
    sampled through ``cli.generate_samples.main`` (2 batches of 64 images x
    100 DDIM steps; the second batch's time is the warm one).
@@ -127,6 +137,21 @@ ATTN_BWD_EXTRA = [  # the registry's other head dims: forward and backward held 
 # dQ pass S, P.V (the forward again), S, dP, dS.K; the dK/dV pass S, dP, dV, dK.
 BWD_UNITS = 18
 GN_SHAPES = [(64, 128, 32, 32), (64, 256, 4, 4)]  # CIFAR levels 0 and 3, G=32
+# Every GroupNorm of a CIFAR U-Net forward, G=32, as (C, H, W, silu, launches):
+# 51 launches (22 resnets x 2, 6 attention pre-norms without SiLU,
+# conv_norm_out); a backward runs each once.
+GN_CENSUS = [
+    (128, 32, 32, True, 8), (256, 16, 16, True, 6), (256, 16, 16, False, 5),
+    (256, 4, 4, True, 11), (256, 4, 4, False, 1), (256, 8, 8, True, 7),
+    (512, 4, 4, True, 3), (512, 8, 8, True, 3), (512, 16, 16, True, 2),
+    (256, 32, 32, True, 2), (128, 16, 16, True, 1), (384, 16, 16, True, 1),
+    (384, 32, 32, True, 1),
+]
+GN_CENSUS_BATCH = 64
+# Stacked members under vmap against the member loop on the card: the same f32
+# ops on other batch shapes (functorch runs a vmapped convolution as a grouped
+# one), max |d| / max |ref| over outputs and over all gradients.
+MEMBERS, MEMBERS_BATCH, MEMBERS_RTOL = 2, 4, 1e-4
 STEPS, BATCH, N_BATCHES = 100, 64, 2
 
 
@@ -159,16 +184,24 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
 def device_ms(torch, fn, iters: int = 10, names: list | None = None) -> float:
     """Device time of fn's kernels per call, from torch.profiler: an event-timed
     loop of a call whose host side outlasts its kernels reads the host. The
-    names of the kernels that ran are appended to `names` if given."""
+    names of the kernels that ran are appended to `names` if given. A trace
+    that recorded no device activity (the profiler drops one now and then) is
+    taken again, up to three times in all, then raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0) > 0]
+        if events:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time in three traces")
     if names is not None:
         names += [e.key for e in events]
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
@@ -188,6 +221,14 @@ def compare_sum(got, want):
     atol, rtol = SUM_TOL
     err = (got.float() - want.float()).abs().max().item()
     return err, err <= atol + rtol * want.float().abs().max().item()
+
+
+def gn_bwd(ops, *args):
+    """(dx, dgamma, dbeta) from the GroupNorm backward kernel's wrapper, which
+    returns dx and the (2, B, C) partials; an older tree's wrapper, timed by
+    `scripts/gn_census.py --tree`, returns the three."""
+    out = ops.group_norm_bwd_kernel(*args)
+    return (out[0], *out[1]) if len(out) == 2 else tuple(out)
 
 
 def bound(nbytes: float, flops: float, dtype: str, rates=PEAK_FLOPS):
@@ -303,7 +344,9 @@ def check_group_norm(torch, F, ops, dev):
                 stats = [compare(a, w, "float32") for a, w in zip(got[1:], want[1:])]
                 stat_err = max(e for e, _ in stats)
                 stat_ok = all(o for _, o in stats)
+                same = all(torch.equal(a, w) for a, w in zip(got, ops.group_norm_kernel(*args)))
                 ms = cuda_ms(torch, lambda: ops.group_norm_kernel(*args))
+                dev_ms = device_ms(torch, lambda: ops.group_norm_kernel(*args))
                 plain_ms = cuda_ms(torch, lambda: ops.group_norm_silu_plain(*args))
 
                 def library():
@@ -315,14 +358,15 @@ def check_group_norm(torch, F, ops, dev):
                 nbytes = 2 * n * x.element_size() + 2 * shape[1] * 4 + 2 * shape[0] * 32 * 4
                 bms, by = bound(nbytes, n * (11.0 if silu else 7.0), "float32")
                 log(f"[kernels] group_norm {tuple(shape)} G=32 silu={silu} {name}: "
-                    f"max_abs_err={err:.3g} (tol {TOL[name]}) stats_err={stat_err:.3g} "
-                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                    f"bound_ms={bms:.4f} ({by})")
-                if not (ok and stat_ok):
-                    raise AssertionError(f"group norm kernel disagrees: {err}, {stat_err}")
+                    f"max_abs_err={err:.3g} (tol {TOL[name]}) stats_err={stat_err:.3g}, "
+                    f"bitwise repeatable={same}; kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})")
+                if not (ok and stat_ok and same):
+                    raise AssertionError(f"group norm kernel disagrees: {err}, {stat_err}, "
+                                         f"repeatable={same}")
                 rows[(shape, name, silu)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bms, bound_by=by)
+                    bound_ms=bms, bound_by=by, device_ms=dev_ms)
     return rows
 
 
@@ -443,13 +487,14 @@ def check_group_norm_bwd(torch, F, ops, dev):
                 dy = torch.randn(shape, generator=g, device=dev).to(dtype)
                 _, mean, rstd = ops.group_norm_silu_plain(x, gamma, beta, 32, 1e-6, silu, dtype)
                 args = (x, dy, gamma, beta, mean, rstd, 32, silu)
-                got = ops.group_norm_bwd_kernel(*args)
+                got = gn_bwd(ops, *args)
                 want = ops.group_norm_silu_bwd_plain(*args)
                 torch.cuda.synchronize()
                 err, ok = compare(got[0], want[0], name)
                 sums = [compare_sum(a, w) for a, w in zip(got[1:], want[1:])]
-                same = all(torch.equal(a, w) for a, w in zip(got, ops.group_norm_bwd_kernel(*args)))
+                same = all(torch.equal(a, w) for a, w in zip(got, gn_bwd(ops, *args)))
                 ms = cuda_ms(torch, lambda: ops.group_norm_bwd_kernel(*args))
+                dev_ms = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*args))
                 plain_ms = cuda_ms(torch, lambda: ops.group_norm_silu_bwd_plain(*args))
                 xr = x.detach().requires_grad_(True)
                 gr, br = (t.to(dtype).detach().requires_grad_(True) for t in (gamma, beta))
@@ -463,15 +508,72 @@ def check_group_norm_bwd(torch, F, ops, dev):
                 log(f"[kernels] group_norm_bwd {tuple(shape)} G=32 silu={silu} {name}: "
                     f"max_abs_err dx={err:.3g} (tol {TOL[name]}) dgamma={sums[0][0]:.3g} "
                     f"dbeta={sums[1][0]:.3g} (tol {SUM_TOL} of max), bitwise repeatable={same}; "
-                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                    f"bound_ms={bms:.4f} ({by})")
+                    f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by})")
                 if not (ok and all(o for _, o in sums) and same):
                     raise AssertionError(f"group norm backward kernel disagrees: {err}, "
                                          f"{sums}, repeatable={same}")
                 rows[(shape, name, silu)] = dict(
                     max_abs_err=max(err, *(e for e, _ in sums)), ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                    library_ms=lib_ms, bound_ms=bms, bound_by=by, device_ms=dev_ms)
     return rows
+
+
+def check_gn_census(torch, ops, dev):
+    """Every GroupNorm shape of a CIFAR U-Net pass (GN_CENSUS) at GN_CENSUS_BATCH, in
+    f32 and bf16: both kernels held against their plain versions (TOL,
+    SUM_TOL), then timed by the profiler's device time: the forward kernel,
+    the backward kernel, and the backward as autograd runs it (the kernel,
+    then the sum of its partials over the batch). Totals per U-Net forward
+    and backward, weighted by launches, beside their bytes bounds (x read and
+    y written; x and dy read and dx written). Returns {dtype: totals}."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        tot = dict(fwd_ms=0.0, bwd_kernel_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0,
+                   bwd_bound_ms=0.0, launches=0)
+        for c, h, w, silu, launches in GN_CENSUS:
+            shape = (GN_CENSUS_BATCH, c, h, w)
+            g = torch.Generator(device=dev).manual_seed(8)
+            x = (torch.randn(shape, generator=g, device=dev) * 3 + 0.5).to(dtype)
+            gamma = torch.randn(c, generator=g, device=dev) + 1
+            beta = torch.randn(c, generator=g, device=dev)
+            dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+            args = (x, gamma, beta, 32, 1e-6, silu, dtype)
+            got, want = ops.group_norm_kernel(*args), ops.group_norm_silu_plain(*args)
+            bargs = (x, dy, gamma, beta, want[1], want[2], 32, silu)
+            got_b = gn_bwd(ops, *bargs)
+            want_b = ops.group_norm_silu_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            checks = ([compare(got[0], want[0], name), compare(got_b[0], want_b[0], name)]
+                      + [compare(a, b, "float32") for a, b in zip(got[1:], want[1:])]
+                      + [compare_sum(a, b) for a, b in zip(got_b[1:], want_b[1:])])
+            if not all(ok for _, ok in checks):
+                raise AssertionError(f"group norm kernels disagree at {shape} silu={silu} "
+                                     f"{name}: {checks}")
+            fwd = device_ms(torch, lambda: ops.group_norm_kernel(*args))
+            bwd_kernel = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*bargs))
+            xr, gr, br = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
+            y = ops.group_norm_silu(xr, gr, br, groups=32, eps=1e-6, silu=silu)
+            bwd = device_ms(torch, lambda: torch.autograd.grad(
+                y, (xr, gr, br), dy, retain_graph=True))
+            nbytes = x.numel() * x.element_size()
+            fwd_b, bwd_b = (k * nbytes / HBM_BYTES_PER_S * 1e3 for k in (2, 3))
+            log(f"[census] group_norm {shape} G=32 silu={silu} {name} x{launches}: "
+                f"max_abs_err out={checks[0][0]:.3g} dx={checks[1][0]:.3g} (tol {TOL[name]}), "
+                f"mean/rstd/partials={max(e for e, _ in checks[2:]):.3g}; "
+                f"device ms: forward={fwd:.4f} (bound {fwd_b:.4f}), "
+                f"backward kernel={bwd_kernel:.4f}, with the sum={bwd:.4f} (bound {bwd_b:.4f})")
+            for key, v in (("fwd_ms", fwd), ("bwd_kernel_ms", bwd_kernel), ("bwd_ms", bwd),
+                           ("fwd_bound_ms", fwd_b), ("bwd_bound_ms", bwd_b), ("launches", 1)):
+                tot[key] += launches * v
+        log(f"[census] {name} per U-Net pass at batch {GN_CENSUS_BATCH} "
+            f"({tot['launches']} launches): "
+            f"forward {tot['fwd_ms']:.4f} ms (bound {tot['fwd_bound_ms']:.4f}), backward "
+            f"{tot['bwd_ms']:.4f} ms with the sums, {tot['bwd_kernel_ms']:.4f} kernels alone "
+            f"(bound {tot['bwd_bound_ms']:.4f}), device time")
+        out[name] = tot
+    return out
 
 
 def check_jl_projection(torch, ops, dev):
@@ -719,6 +821,66 @@ def check_train_step(torch, np, spec, dev):
         raise AssertionError("the train step on the card disagrees with the CPU")
 
 
+def check_members(torch, np, ops, spec, dev):
+    """MEMBERS full-width CIFAR members stacked with `stack_module_state`,
+    through `torch.func.vmap(functional_call)` (each member with a seeded
+    gamma/beta of its own in every GroupNorm): the forward and per-member
+    gradients (`vmap(grad)`) in one vmapped call, each GroupNorm site one
+    launch for every member, against the member loop on the card."""
+    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import GroupNormSiLU
+
+    models = [build_unet(spec, seed=10 + m).to(dev) for m in range(MEMBERS)]
+    # Every GroupNorm starts at gamma = 1, beta = 0 in every member; give each
+    # member its own, so that a kernel reading another member's row of
+    # gamma/beta disagrees with the loop.
+    g = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        for model in models:
+            for norm in (m for m in model.modules() if isinstance(m, GroupNormSiLU)):
+                norm.weight.copy_(1 + 0.1 * torch.randn(norm.weight.shape, generator=g,
+                                                        device=dev))
+                norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g, device=dev))
+    params, buffers = torch.func.stack_module_state(models)
+    rng = np.random.default_rng(9)
+    shape = (MEMBERS, MEMBERS_BATCH, 3, 32, 32)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+    target = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    t = torch.tensor([999, 500, 20, 0], device=dev)
+
+    def loss(p, bufs, xx, tgt):
+        out = torch.func.functional_call(models[0], (p, bufs), (xx, t))
+        return torch.mean((out - tgt) ** 2), out
+
+    reset_counts(ops)
+    grads, outs = torch.func.vmap(torch.func.grad(loss, has_aux=True))(
+        params, buffers, x, target)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    reset_counts(ops)
+    loop_out, loop_grads = [], []
+    for m, model in enumerate(models):
+        out = model(x[m], t)
+        loop_grads.append(torch.autograd.grad(torch.mean((out - target[m]) ** 2),
+                                              list(model.parameters())))
+        loop_out.append(out.detach())
+    torch.cuda.synchronize()
+    loop_counts = ops.launch_counts()
+    names = [n for n, _ in models[0].named_parameters()]
+    out_err = (outs - torch.stack(loop_out)).abs().max().item()
+    out_scale = torch.stack(loop_out).abs().max().item()
+    g_err = max((grads[n][m] - loop_grads[m][i]).abs().max().item()
+                for m in range(MEMBERS) for i, n in enumerate(names))
+    g_scale = max(g.abs().max().item() for lg in loop_grads for g in lg)
+    log(f"[members] {MEMBERS} stacked CIFAR UNet2D members, batch {MEMBERS_BATCH} each, f32, "
+        f"vmap(grad) vs the member loop on the card: output max |d| / max |out| "
+        f"{out_err / out_scale:.3g}, gradients max |dg| / max |g| {g_err / g_scale:.3g} "
+        f"(tol {MEMBERS_RTOL}); vmapped launches {counts}, loop launches {loop_counts}")
+    if not (out_err <= MEMBERS_RTOL * out_scale and g_err <= MEMBERS_RTOL * g_scale
+            and counts == unet_counts(1, 1) and loop_counts == unet_counts(MEMBERS, MEMBERS)):
+        raise AssertionError("stacked members under vmap disagree with the member loop")
+
+
 def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
     """train_ensemble.main at full width: a warm-up run, then the timed run
     with the launch counters reset just before and read just after."""
@@ -844,6 +1006,7 @@ def run(torch, tmp: str) -> int:
     attn_bwd_rows = check_attention_bwd(torch, F, ops, dev)
     gn_rows = check_group_norm(torch, F, ops, dev)
     gn_bwd_rows = check_group_norm_bwd(torch, F, ops, dev)
+    check_gn_census(torch, ops, dev)
     jl_row = check_jl_projection(torch, ops, dev)
 
     spec = get_config("cifar").unet
@@ -865,6 +1028,7 @@ def run(torch, tmp: str) -> int:
         raise AssertionError("CIFAR forward on the card disagrees with the CPU")
 
     check_train_step(torch, np, spec, dev)
+    check_members(torch, np, ops, spec, dev)
 
     model_dir, out = os.path.join(tmp, "model"), os.path.join(tmp, "samples")
     sd = model.cpu().state_dict()

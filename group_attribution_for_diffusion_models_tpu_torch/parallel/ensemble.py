@@ -3,9 +3,11 @@
 Port of the JAX package's ``parallel/ensemble.py`` without a mesh. The JAX
 trainer stacks the members' states and vmaps one compiled step over them;
 here the members are stepped one after another, each a U-Net with its own
-optimizer state. The ctypes kernels have no vmap rule, and the loop keeps
-every per-member property plainly true. Folding members into the batch, or
-capturing the step in a CUDA graph, is later work.
+optimizer state, and the loop keeps every per-member property plainly true.
+Members in the batch are possible: the kernels' autograd Functions have
+vmap rules that take a gamma/beta per member, so `torch.func.vmap` over
+`stack_module_state` runs one launch a layer for every member. Training
+that way, or capturing the step in a CUDA graph, is later work.
 
 Data path: the whole training set stays on the device as uint8 (NCHW). Each
 member draws its batch slots on the device from its padded remaining-index

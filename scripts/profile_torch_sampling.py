@@ -39,7 +39,7 @@ def group(name: str) -> str:
     low = name.lower()
     for kernel in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv",
                    "group_norm_fwd", "group_norm_bwd"):
-        if f"{kernel}_kernel" in name:
+        if f"{kernel}_" in name:  # <kernel>_kernel; GroupNorm's _flat and _stream
             return f"{kernel} (port kernel)"
     if "jl_partial_kernel" in name or "jl_reduce_kernel" in name:
         return "jl_projection (port kernel)"

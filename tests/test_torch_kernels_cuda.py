@@ -238,14 +238,83 @@ def test_group_norm_bwd_kernel_matches_plain(cuda, dtype, silu, shape, groups):
     _, mean, rstd = group_norm_silu_plain(x, gamma, beta, groups, 1e-6, silu, dtype)
     args = (x, dy, gamma, beta, mean, rstd, groups, silu)
     before = group_norm_bwd_kernel.launches
-    got = group_norm_bwd_kernel(*args)
+    dx, part = group_norm_bwd_kernel(*args)
     assert group_norm_bwd_kernel.launches == before + 1
+    assert part.shape == (2,) + shape[:2]
     want = group_norm_silu_bwd_plain(*args)
     atol, rtol = TOL[dtype]
-    torch.testing.assert_close(got[0].float(), want[0].float(), atol=atol, rtol=rtol)
-    for a, w in zip(got[1:], want[1:]):
+    torch.testing.assert_close(dx.float(), want[0].float(), atol=atol, rtol=rtol)
+    for a, w in zip(part, want[1:]):
         torch.testing.assert_close(a, w, atol=5e-5 + 1e-5 * w.abs().max().item(), rtol=0)
-    assert all(torch.equal(a, w) for a, w in zip(got, group_norm_bwd_kernel(*args)))
+    assert all(torch.equal(a, w) for a, w in zip((dx, part), group_norm_bwd_kernel(*args)))
+
+
+def _gn_case(cuda, shape, dtype, seed, rows=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3 + 0.5).to(dtype)
+    c = shape[1]
+    affine = (c,) if rows is None else (rows, c)
+    gamma = torch.randn(affine, generator=g, device=cuda) + 1
+    beta = torch.randn(affine, generator=g, device=cuda)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return x, gamma, beta, dy
+
+
+def _check_gn_both(x, gamma, beta, dy, groups, silu, dtype):
+    """Both kernels against their plain versions, each repeated bit for bit."""
+    args = (x, gamma, beta, groups, 1e-6, silu, dtype)
+    got = group_norm_kernel(*args)
+    want = group_norm_silu_plain(*args)
+    for a, w, (atol, rtol) in zip(got, want, (TOL[dtype], (1e-5, 1e-5), (1e-5, 1e-5))):
+        torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol)
+    assert all(torch.equal(a, w) for a, w in zip(got, group_norm_kernel(*args)))
+    bargs = (x, dy, gamma, beta, want[1], want[2], groups, silu)
+    dx, part = group_norm_bwd_kernel(*bargs)
+    want = group_norm_silu_bwd_plain(*bargs)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(dx.float(), want[0].float(), atol=atol, rtol=rtol)
+    for a, w in zip(part, want[1:]):
+        torch.testing.assert_close(a, w, atol=5e-5 + 1e-5 * w.abs().max().item(), rtol=0)
+    assert all(torch.equal(a, w) for a, w in zip((dx, part), group_norm_bwd_kernel(*bargs)))
+
+
+# Every GroupNorm shape of the CIFAR U-Net (chip_smoke.py's GN_CENSUS) at batch 4.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chw,silu", [
+    ((128, 32, 32), True), ((256, 16, 16), True), ((256, 16, 16), False),
+    ((256, 4, 4), True), ((256, 4, 4), False), ((256, 8, 8), True), ((512, 4, 4), True),
+    ((512, 8, 8), True), ((512, 16, 16), True), ((256, 32, 32), True),
+    ((128, 16, 16), True), ((384, 16, 16), True), ((384, 32, 32), True),
+])
+def test_group_norm_kernels_at_the_unet_shapes(cuda, dtype, chw, silu):
+    x, gamma, beta, dy = _gn_case(cuda, (4,) + chw, dtype, 7)
+    _check_gn_both(x, gamma, beta, dy, 32, silu, dtype)
+
+
+# Each size class: one warp a group, several warps a group, the stream (a
+# group past the register budget in f32, HW/4 = 12 neither a multiple of 32
+# nor a power of two, HW = 35 not a multiple of 16 bytes, cpg = 6; 1100
+# channels a group, past one pass of the backward's shared partials).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((4, 256, 8, 8), 32), ((4, 384, 32, 32), 32),
+                                          ((2, 64, 96, 96), 32), ((4, 64, 6, 8), 32),
+                                          ((4, 24, 5, 7), 4), ((2, 1100, 4, 4), 1)])
+@pytest.mark.parametrize("rows", ["shared", "R1", "R2", "RB"])
+def test_group_norm_kernels_take_a_gamma_row_per_run_of_samples(cuda, dtype, shape, groups,
+                                                                 rows):
+    rows = {"shared": None, "R1": 1, "R2": 2, "RB": shape[0]}[rows]
+    x, gamma, beta, dy = _gn_case(cuda, shape, dtype, 8, rows)
+    _check_gn_both(x, gamma, beta, dy, groups, True, dtype)
+
+
+def test_group_norm_kernels_read_tensors_off_16_bytes(cuda):
+    shape = (2, 64, 8, 8)
+    n = torch.Size(shape).numel()
+    x = torch.randn(n + 1, device=cuda)[1:].view(shape)
+    dy = torch.randn(n + 1, device=cuda)[1:].view(shape)
+    assert x.data_ptr() % 16
+    _check_gn_both(x, torch.randn(64, device=cuda) + 1, torch.randn(64, device=cuda), dy, 32,
+                   True, torch.float32)
 
 
 def test_autograd_functions_on_the_card_launch_the_backward_kernels(cuda):
