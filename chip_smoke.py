@@ -19,11 +19,17 @@ Phases (one line each; any failure raises and exits non-zero):
    rate of the kernel's route beside the f32 FMA bound. The GroupNorm rows
    are repeated bit for bit and timed by the profiler's device time too.
    census: every GroupNorm shape of a CIFAR U-Net pass at batch 64, forward
-   and backward kernels held against their plain versions and timed by
-   device time, with the launch-weighted totals per U-Net forward and
-   backward beside their bytes bounds, in float32 and bfloat16.
+   and backward kernels held against their plain versions, repeated bit for
+   bit and timed by device time, with the launch-weighted totals per U-Net
+   forward and backward beside their bytes bounds, in float32 and bfloat16.
 3. forward: the full-width CIFAR UNet2D (random weights from a seed) on the
    card against the same model on the CPU, batch 4, float32.
+   prune-gn: the seeded full-width CIFAR U-Net pruned by magnitude at ratios
+   0.3 and 0.5 (hidden widths 96/192 and 64/128: 3, 6, 2 and 4 channels a
+   group); every GroupNorm shape of a pruned U-Net pass at batch 64, the
+   census's checks and device times at the shapes it has not timed yet, with
+   per-pass totals; the ratio-0.3 pruned U-Net on the card against the CPU,
+   batch 4, float32.
 4. train-step: one `make_train_step` of that model on the card against the
    CPU from the same weights, images, timesteps and noise (batch 8, float32,
    TF32 off): loss, gradient norm and gradients; and two card runs of the
@@ -51,6 +57,15 @@ Phases (one line each; any failure raises and exits non-zero):
    timesteps, projected to 4096; generated samples; the probe and
    attention-only modes; Journey TRAK), then ``cli.traks.main`` on the
    store.
+10. main path, the estimation loop: ``cli.shapley_pipeline.main`` on the
+    stand-in at full width (by class, 8 shapley fit and 6 datamodel test
+    subsets, 20 steps at batch 64, eval-loss behavior, two anchors: arm A,
+    retrain), ``cli.prune.main`` (Taylor importance, 10 timesteps, ratio
+    0.5) on arm A's full anchor, then the pipeline again on the same DB with
+    ``--method prune_fine_tune --load <pruned> --fit_training_steps 10``
+    (arm B, sparse fine-tuning, its test rows reused). Launch counts per
+    arm, attributions of shape (10,), the efficiency constraint, the fit
+    game's anchors and a shared y_test are asserted.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies. The last two lines
@@ -148,6 +163,13 @@ GN_CENSUS = [
     (384, 32, 32, True, 1),
 ]
 GN_CENSUS_BATCH = 64
+PRUNE_RATIOS = (0.3, 0.5)  # magnitude pruning of the seeded CIFAR U-Net in [prune-gn]
+# [pipeline]: shapley_pipeline at full width on the stand-in, by class.
+PIPE_FIT, PIPE_TEST, PIPE_STEPS, PIPE_FT_STEPS, PIPE_BATCH = 8, 6, 20, 10, 64
+PIPE_TEST_SEED = 42  # datamodel seeds 42..47 keep 5 of the stand-in's 10 classes each
+PIPE_TAYLOR_STRIDE, PIPE_PRUNE_RATIO = 100, 0.5  # 10 Taylor timesteps: 999, 899, ..., 99
+# Efficiency constraint of the closed form: |sum(attrs) - (v1 - v0)| <= this * max(1, |v1 - v0|).
+EFFICIENCY_RTOL = 1e-6
 # Stacked members under vmap against the member loop on the card: the same f32
 # ops on other batch shapes (functorch runs a vmapped convolution as a grouped
 # one), max |d| / max |ref| over outputs and over all gradients.
@@ -519,61 +541,229 @@ def check_group_norm_bwd(torch, F, ops, dev):
     return rows
 
 
-def check_gn_census(torch, ops, dev):
-    """Every GroupNorm shape of a CIFAR U-Net pass (GN_CENSUS) at GN_CENSUS_BATCH, in
-    f32 and bf16: both kernels held against their plain versions (TOL,
-    SUM_TOL), then timed by the profiler's device time: the forward kernel,
-    the backward kernel, and the backward as autograd runs it (the kernel,
-    then the sum of its partials over the batch). Totals per U-Net forward
-    and backward, weighted by launches, beside their bytes bounds (x read and
-    y written; x and dy read and dx written). Returns {dtype: totals}."""
+def gn_census_of(torch, spec) -> list:
+    """Every GroupNorm of a `spec` U-Net forward as (C, H, W, silu, launches),
+    in order of first use, from forward pre-hooks on a batch-1 pass on the
+    CPU."""
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import GroupNormSiLU
+
+    model = UNet2D(spec).eval()
+    seen: dict = {}
+
+    def hook(mod, inputs):
+        key = (*inputs[0].shape[1:], mod.silu)
+        seen[key] = seen.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, GroupNormSiLU)]
+    with torch.no_grad():
+        model(torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size),
+              torch.zeros(1, dtype=torch.long))
+    for h in handles:
+        h.remove()
+    return [(c, h, w, silu, n) for (c, h, w, silu), n in seen.items()]
+
+
+def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=None):
+    """Every GroupNorm shape of a U-Net pass (`census`, default the CIFAR
+    U-Net's GN_CENSUS) at GN_CENSUS_BATCH, in f32 and bf16: both kernels held
+    against their plain versions (TOL, SUM_TOL) and repeated bit for bit,
+    then timed by the profiler's device time: the forward kernel, the
+    backward kernel, and the backward as autograd runs it (the kernel, then
+    the sum of its partials over the batch). Totals per U-Net forward and
+    backward, weighted by launches, beside their bytes bounds (x read and y
+    written; x and dy read and dx written). A shape already in `cache` (a
+    dict this fills) is not held or timed again. Returns {dtype: totals}."""
+    cache = {} if cache is None else cache
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         tot = dict(fwd_ms=0.0, bwd_kernel_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0,
                    bwd_bound_ms=0.0, launches=0)
-        for c, h, w, silu, launches in GN_CENSUS:
-            shape = (GN_CENSUS_BATCH, c, h, w)
-            g = torch.Generator(device=dev).manual_seed(8)
-            x = (torch.randn(shape, generator=g, device=dev) * 3 + 0.5).to(dtype)
-            gamma = torch.randn(c, generator=g, device=dev) + 1
-            beta = torch.randn(c, generator=g, device=dev)
-            dy = torch.randn(shape, generator=g, device=dev).to(dtype)
-            args = (x, gamma, beta, 32, 1e-6, silu, dtype)
-            got, want = ops.group_norm_kernel(*args), ops.group_norm_silu_plain(*args)
-            bargs = (x, dy, gamma, beta, want[1], want[2], 32, silu)
-            got_b = gn_bwd(ops, *bargs)
-            want_b = ops.group_norm_silu_bwd_plain(*bargs)
-            torch.cuda.synchronize()
-            checks = ([compare(got[0], want[0], name), compare(got_b[0], want_b[0], name)]
-                      + [compare(a, b, "float32") for a, b in zip(got[1:], want[1:])]
-                      + [compare_sum(a, b) for a, b in zip(got_b[1:], want_b[1:])])
-            if not all(ok for _, ok in checks):
-                raise AssertionError(f"group norm kernels disagree at {shape} silu={silu} "
-                                     f"{name}: {checks}")
-            fwd = device_ms(torch, lambda: ops.group_norm_kernel(*args))
-            bwd_kernel = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*bargs))
-            xr, gr, br = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
-            y = ops.group_norm_silu(xr, gr, br, groups=32, eps=1e-6, silu=silu)
-            bwd = device_ms(torch, lambda: torch.autograd.grad(
-                y, (xr, gr, br), dy, retain_graph=True))
-            nbytes = x.numel() * x.element_size()
-            fwd_b, bwd_b = (k * nbytes / HBM_BYTES_PER_S * 1e3 for k in (2, 3))
-            log(f"[census] group_norm {shape} G=32 silu={silu} {name} x{launches}: "
-                f"max_abs_err out={checks[0][0]:.3g} dx={checks[1][0]:.3g} (tol {TOL[name]}), "
-                f"mean/rstd/partials={max(e for e, _ in checks[2:]):.3g}; "
-                f"device ms: forward={fwd:.4f} (bound {fwd_b:.4f}), "
-                f"backward kernel={bwd_kernel:.4f}, with the sum={bwd:.4f} (bound {bwd_b:.4f})")
-            for key, v in (("fwd_ms", fwd), ("bwd_kernel_ms", bwd_kernel), ("bwd_ms", bwd),
-                           ("fwd_bound_ms", fwd_b), ("bwd_bound_ms", bwd_b), ("launches", 1)):
-                tot[key] += launches * v
-        log(f"[census] {name} per U-Net pass at batch {GN_CENSUS_BATCH} "
+        for c, h, w, silu, launches in census:
+            key = (c, h, w, silu, name)
+            if key not in cache:
+                cache[key] = _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name)
+                row = cache[key]
+                log(f"[{label}] group_norm {(GN_CENSUS_BATCH, c, h, w)} G=32 cpg={c // 32} "
+                    f"silu={silu} {name} x{launches}: max_abs_err out={row['out_err']:.3g} "
+                    f"dx={row['dx_err']:.3g} (tol {TOL[name]}), mean/rstd/partials="
+                    f"{row['stat_err']:.3g}, bitwise repeatable=True; device ms: forward="
+                    f"{row['fwd_ms']:.4f} (bound {row['fwd_bound_ms']:.4f}), backward kernel="
+                    f"{row['bwd_kernel_ms']:.4f}, with the sum={row['bwd_ms']:.4f} "
+                    f"(bound {row['bwd_bound_ms']:.4f})")
+            for k in tot:
+                tot[k] += launches * (1 if k == "launches" else cache[key][k])
+        log(f"[{label}] {name} per U-Net pass at batch {GN_CENSUS_BATCH} "
             f"({tot['launches']} launches): "
             f"forward {tot['fwd_ms']:.4f} ms (bound {tot['fwd_bound_ms']:.4f}), backward "
             f"{tot['bwd_ms']:.4f} ms with the sums, {tot['bwd_kernel_ms']:.4f} kernels alone "
             f"(bound {tot['bwd_bound_ms']:.4f}), device time")
         out[name] = tot
     return out
+
+
+def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name) -> dict:
+    """One census shape: both kernels held and repeated, then timed."""
+    shape = (GN_CENSUS_BATCH, c, h, w)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device=dev) + 1
+    beta = torch.randn(c, generator=g, device=dev)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    args = (x, gamma, beta, 32, 1e-6, silu, dtype)
+    got, want = ops.group_norm_kernel(*args), ops.group_norm_silu_plain(*args)
+    bargs = (x, dy, gamma, beta, want[1], want[2], 32, silu)
+    got_b = gn_bwd(ops, *bargs)
+    want_b = ops.group_norm_silu_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    checks = ([compare(got[0], want[0], name), compare(got_b[0], want_b[0], name)]
+              + [compare(a, b, "float32") for a, b in zip(got[1:], want[1:])]
+              + [compare_sum(a, b) for a, b in zip(got_b[1:], want_b[1:])])
+    same = (all(torch.equal(a, b) for a, b in zip(got, ops.group_norm_kernel(*args)))
+            and all(torch.equal(a, b) for a, b in zip(got_b, gn_bwd(ops, *bargs))))
+    if not (all(ok for _, ok in checks) and same):
+        raise AssertionError(f"group norm kernels disagree at {shape} silu={silu} "
+                             f"{name}: {checks}, repeatable={same}")
+    fwd = device_ms(torch, lambda: ops.group_norm_kernel(*args))
+    bwd_kernel = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*bargs))
+    xr, gr, br = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
+    y = ops.group_norm_silu(xr, gr, br, groups=32, eps=1e-6, silu=silu)
+    bwd = device_ms(torch, lambda: torch.autograd.grad(y, (xr, gr, br), dy, retain_graph=True))
+    nbytes = x.numel() * x.element_size()
+    return dict(out_err=checks[0][0], dx_err=checks[1][0],
+                stat_err=max(e for e, _ in checks[2:]), fwd_ms=fwd, bwd_kernel_ms=bwd_kernel,
+                bwd_ms=bwd, fwd_bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+                bwd_bound_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def check_prune_gn(torch, np, ops, model, spec, dev, cache):
+    """Magnitude pruning of the seeded CIFAR U-Net at PRUNE_RATIOS: the
+    GroupNorm census of each pruned pass (the shapes `cache` lacks held and
+    timed), then the ratio-0.3 pruned U-Net on the card against the CPU."""
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.pruning import (
+        count_params, magnitude_importance, prune_unet)
+
+    if sorted(gn_census_of(torch, spec)) != sorted(GN_CENSUS):
+        raise AssertionError("the census helper disagrees with GN_CENSUS")
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    importance = magnitude_importance(state)
+    pruned = {}
+    for ratio in PRUNE_RATIOS:
+        pspec, pstate = prune_unet(spec, state, ratio, importance)
+        census = gn_census_of(torch, pspec)
+        widths = sorted(set(pspec.pruned_channels.values()))
+        log(f"[prune-gn] magnitude ratio {ratio}: {len(pspec.pruned_channels)} resnets, hidden "
+            f"widths {widths} (channels a group {[w // 32 for w in widths]}), "
+            f"{count_params(state)} -> {count_params(pstate)} params; {len(census)} GroupNorm "
+            f"shapes, {sum(n for *_, n in census)} launches a pass, as (C, H, W, silu, launches): "
+            f"{census}")
+        check_gn_census(torch, ops, dev, census, label="prune-gn", cache=cache)
+        pruned[ratio] = pspec, pstate
+    pspec, pstate = pruned[PRUNE_RATIOS[0]]
+    pmodel = UNet2D(pspec)
+    pmodel.load_state_dict(pstate)
+    pmodel.eval()
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((4, 3, 32, 32)).astype(np.float32))
+    t = torch.tensor([999, 500, 20, 0])
+    with torch.no_grad():
+        want = pmodel(x, t)
+        pmodel.to(dev)
+        reset_counts(ops)
+        got = pmodel(x.to(dev), t.to(dev)).cpu()
+    counts = ops.launch_counts()
+    err = (got - want).abs().max().item()
+    log(f"[prune-gn] pruned (ratio {PRUNE_RATIOS[0]}) CIFAR UNet2D batch 4 f32, card vs CPU: "
+        f"max_abs_err={err:.3g} (tol {CIFAR_FWD_ATOL}), launches {counts}")
+    if not (err <= CIFAR_FWD_ATOL and counts == unet_counts(1, 0)):
+        raise AssertionError("the pruned CIFAR forward on the card disagrees with the CPU")
+
+
+def check_pipeline(torch, np, ops, root: str, card: str):
+    """shapley_pipeline at full width on the stand-in: arm A (retrain), the
+    Taylor prune of its full anchor, arm B (sparse fine-tuning from the pruned
+    base, on the same DB and test seeds), each between a counter reset and a
+    read, with the launches the code implies. Returns the summed counts."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli import prune, shapley_pipeline
+
+    outdir = os.path.join(root, "pipeline")
+    common = ["--dataset", "cifar", "--by_class", "--fit_dist", "shapley",
+              "--removal_seed", "0", "--num_fit_subsets", str(PIPE_FIT),
+              "--num_test_subsets", str(PIPE_TEST), "--test_seed_start", str(PIPE_TEST_SEED),
+              "--training_steps", str(PIPE_STEPS), "--batch_size", str(PIPE_BATCH),
+              "--behavior", "eval_loss", "--chunk_size", str(PIPE_FIT), "--no-save_ckpts",
+              "--device", "cuda", "--outdir", outdir]
+    # Per member: its steps' forwards and backwards and one eval-loss forward.
+    # Arm A: fit and test members, the null anchor (0 steps), the full anchor.
+    a_steps = (PIPE_FIT + PIPE_TEST + 1) * PIPE_STEPS
+    want_a = unet_counts(a_steps + PIPE_FIT + PIPE_TEST + 2, a_steps)
+    # Arm B: fit members and anchors only; its test rows are arm A's.
+    b_steps = (PIPE_FIT + 1) * PIPE_FT_STEPS
+    want_b = unet_counts(b_steps + PIPE_FIT + 2, b_steps)
+    # Taylor: one forward and backward a timestep, then the pruned model's check.
+    taylor = len(range(999, -1, -PIPE_TAYLOR_STRIDE))
+    want_p = unet_counts(taylor + 1, taylor)
+
+    def timed(fn, argv):
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts()
+
+    arms = {}
+    a, a_wall, a_counts = timed(shapley_pipeline.main, common)
+    arms["A retrain"] = (a, a_wall, a_counts, want_a, a_steps)
+    full = os.path.join(outdir, "cifar", "retrain", "models", "full")
+    p, p_wall, p_counts = timed(prune.main, [
+        "--dataset", "cifar", "--load", full, "--pruner", "taylor",
+        "--timestep_stride", str(PIPE_TAYLOR_STRIDE), "--pruning_ratio", str(PIPE_PRUNE_RATIO),
+        "--outdir", outdir, "--device", "cuda"])
+    widths = sorted(set(p["spec"].pruned_channels.values()))
+    log(f"[pipeline] prune taylor ratio {PIPE_PRUNE_RATIO} of arm A's full anchor ({taylor} "
+        f"timesteps at batch {PIPE_BATCH}): {p['params_before']} -> {p['params_after']} params, "
+        f"hidden widths {widths}, scoring and slicing {p['seconds']:.3f} s, call "
+        f"{p_wall:.3f} s, launches {p_counts} (expected {want_p})")
+    if p_counts != want_p:
+        raise AssertionError(f"prune launches {p_counts}, expected {want_p}")
+    b, b_wall, b_counts = timed(shapley_pipeline.main, common + [
+        "--method", "prune_fine_tune", "--load", p["model_dir"],
+        "--fit_training_steps", str(PIPE_FT_STEPS)])
+    arms["B sparse FT"] = (b, b_wall, b_counts, want_b, b_steps)
+    for label, (r, wall, counts, want, steps) in arms.items():
+        row, attrs = r["row"], r["attrs"]
+        resid = abs(attrs.sum() - (r["v1"] - r["v0"]))
+        limit = EFFICIENCY_RTOL * max(1.0, abs(r["v1"] - r["v0"]))
+        log(f"[pipeline] arm {label} cifar by class f32 on {card}: {row['num_fit_subsets']} fit "
+            f"x {row['fit_training_steps']} steps, {row['num_test_subsets']} test rows; training "
+            f"{r['train_seconds']:.3f} s ({steps} member-steps at batch {PIPE_BATCH}, "
+            f"{steps / r['train_seconds']:.3f} member-steps/s), subset_passes_per_hour "
+            f"{row['subset_passes_per_hour']}, call {wall:.3f} s; lds_pooled "
+            f"{row['lds_pooled']:.4f}, v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual "
+            f"{resid:.3g} (limit {limit:.3g}); launches {counts} (expected {want})")
+        if counts != want:
+            raise AssertionError(f"pipeline arm {label}: launches {counts}, expected {want}")
+        if not (attrs.shape == (10,) and np.isfinite(attrs).all() and resid <= limit):
+            raise AssertionError(f"pipeline arm {label}: attributions {attrs}")
+        if (len(r["x_fit"]), len(r["y_test"])) != (PIPE_FIT, PIPE_TEST):
+            raise AssertionError(f"pipeline arm {label}: rows {len(r['x_fit'])}, "
+                                 f"{len(r['y_test'])}")
+    # Arm B's anchors come from the prune_fine_tune game; both arms fit
+    # against the same retrained test rows.
+    v1, v0 = shapley_pipeline.anchor_values(b["db"], "cifar", "prune_fine_tune", "eval_loss",
+                                            PIPE_FT_STEPS)
+    if (v1, v0) != (b["v1"], b["v0"]) or b["v0"] == a["v0"]:
+        raise AssertionError("arm B's anchors are not the prune_fine_tune game's")
+    if not np.array_equal(a["y_test"], b["y_test"]):
+        raise AssertionError("the arms fit against different test rows")
+    log(f"[pipeline] both arms against the same {PIPE_TEST} retrained test rows (y_test "
+        f"{np.round(a['y_test'], 6).tolist()}); attrs A {np.round(a['attrs'], 6).tolist()}, "
+        f"B {np.round(b['attrs'], 6).tolist()}")
+    return {k: a_counts[k] + p_counts[k] + b_counts[k] for k in a_counts}
 
 
 def check_jl_projection(torch, ops, dev):
@@ -1006,7 +1196,8 @@ def run(torch, tmp: str) -> int:
     attn_bwd_rows = check_attention_bwd(torch, F, ops, dev)
     gn_rows = check_group_norm(torch, F, ops, dev)
     gn_bwd_rows = check_group_norm_bwd(torch, F, ops, dev)
-    check_gn_census(torch, ops, dev)
+    gn_cache: dict = {}
+    check_gn_census(torch, ops, dev, cache=gn_cache)
     jl_row = check_jl_projection(torch, ops, dev)
 
     spec = get_config("cifar").unet
@@ -1027,6 +1218,8 @@ def run(torch, tmp: str) -> int:
     if not (err <= CIFAR_FWD_ATOL and counts == unet_counts(1, 0)):
         raise AssertionError("CIFAR forward on the card disagrees with the CPU")
 
+    model.cpu()
+    check_prune_gn(torch, np, ops, model, spec, dev, gn_cache)
     check_train_step(torch, np, spec, dev)
     check_members(torch, np, ops, spec, dev)
 
@@ -1079,9 +1272,12 @@ def run(torch, tmp: str) -> int:
     train_counts = check_training_path(torch, np, ops, train_ensemble, tmp, card)
     check_trak_step(torch, np, ops, spec, dev)
     trak_counts = check_trak_path(torch, np, ops, grad_features, traks, model_dir, tmp, card)
+    pipe_counts = check_pipeline(torch, np, ops, tmp, card)
 
-    # launches: the three main paths, sampling, training and TRAK.
-    launches = {k: sample_counts[k] + train_counts[k] + trak_counts[k] for k in trak_counts}
+    # launches: the four main paths, sampling, training, TRAK and the
+    # estimation loop.
+    launches = {k: sample_counts[k] + train_counts[k] + trak_counts[k] + pipe_counts[k]
+                for k in trak_counts}
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

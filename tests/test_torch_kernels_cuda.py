@@ -291,6 +291,17 @@ def test_group_norm_kernels_at_the_unet_shapes(cuda, dtype, chw, silu):
     _check_gn_both(x, gamma, beta, dy, 32, silu, dtype)
 
 
+# norm2 of a structurally pruned CIFAR U-Net: hidden widths rounded to the 32
+# groups give 2, 3 or 6 channels a group (ratio 0.5: 64, 128; ratio 0.3: 96,
+# 192) at every level's resolution.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpg", [2, 3, 6])
+@pytest.mark.parametrize("hw", [32, 16, 8, 4])
+def test_group_norm_kernels_at_the_pruned_norm2_shapes(cuda, dtype, cpg, hw):
+    x, gamma, beta, dy = _gn_case(cuda, (4, 32 * cpg, hw, hw), dtype, 9)
+    _check_gn_both(x, gamma, beta, dy, 32, True, dtype)
+
+
 # Each size class: one warp a group, several warps a group, the stream (a
 # group past the register budget in f32, HW/4 = 12 neither a multiple of 32
 # nor a power of two, HW = 35 not a multiple of 16 bytes, cpg = 6; 1100
