@@ -66,6 +66,19 @@ Phases (one line each; any failure raises and exits non-zero):
     (arm B, sparse fine-tuning, its test rows reused). Launch counts per
     arm, attributions of shape (10,), the efficiency constraint, the fit
     game's anchors and a shared y_test are asserted.
+11. scores: the full FID InceptionV3 (seeded random init) on 8 seeded 32x32
+    images resized to 299, card against CPU (f32, TF32 off), then timed at
+    batch 256 (event and device time, images/s, peak memory) beside its
+    bound from the layer shapes; the same for VGG16Features at 224. Then
+    the main path of the sample behaviors: ``cli.shapley_pipeline.main
+    --behavior fid_value`` at full width on the stand-in (by class, 4
+    shapley fit and 6 datamodel test subsets, 20 steps at batch 64, the two
+    anchors, 256 DDIM samples of 20 steps a member scored in the loop), its
+    seconds split into training, sampling, tower and FID math, launches,
+    every member's FID and the efficiency constraint asserted; then
+    ``cli.calculate_global_scores.main`` on the full anchor's checkpoint
+    (the same 256 samples: FID and IS equal to the anchor's row; precision
+    and recall on VGG16 features).
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies. The last two lines
@@ -170,6 +183,18 @@ PIPE_TEST_SEED = 42  # datamodel seeds 42..47 keep 5 of the stand-in's 10 classe
 PIPE_TAYLOR_STRIDE, PIPE_PRUNE_RATIO = 100, 0.5  # 10 Taylor timesteps: 999, 899, ..., 99
 # Efficiency constraint of the closed form: |sum(attrs) - (v1 - v0)| <= this * max(1, |v1 - v0|).
 EFFICIENCY_RTOL = 1e-6
+# [scores]: the towers card vs CPU, |d| <= TOWER_TOL * max(1, max |CPU|) (about 95 f32
+# layers summed in other orders; tests/test_inception_numeric.py's tolerance).
+TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 8, 256
+# shapley_pipeline --behavior fid_value at full width: shapley seeds 0..3 keep 1-9
+# classes, datamodel seeds 42..47 keep 5; every member scored on its own samples.
+SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 4, 6, 20, 64
+SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 20, 42
+# calculate_global_scores --seed SCORE_SEED on the anchor's checkpoint draws the
+# anchor's own samples (train_ensemble's default --opt_seed, which the pipeline
+# keeps; the same batch and EMA weights), so its FID is the anchor row's up to
+# the host's float64 BLAS.
+SCORE_FID_RTOL = 1e-6
 # Stacked members under vmap against the member loop on the card: the same f32
 # ops on other batch shapes (functorch runs a vmapped convolution as a grouped
 # one), max |d| / max |ref| over outputs and over all gradients.
@@ -766,6 +791,161 @@ def check_pipeline(torch, np, ops, root: str, card: str):
     return {k: a_counts[k] + p_counts[k] + b_counts[k] for k in a_counts}
 
 
+def tower_flops(torch, model, size: int) -> float:
+    """FLOPs of one image through `model`'s convolutions and dense layers (2
+    a multiply-add), from forward hooks on a batch-1 pass on the CPU; the
+    pools, BatchNorms and ReLUs are not counted."""
+    total = [0.0]
+
+    def hook(mod, inputs, out):
+        total[0] += 2.0 * out.numel() * mod.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size))
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def check_towers(torch, np, dev, card: str) -> None:
+    """The FID InceptionV3 and VGG16Features (seeded random inits, full
+    size) on the card against the CPU on TOWER_CHECK_IMAGES seeded 32x32
+    images, then timed at TOWER_BATCH: event time, device time, images/s,
+    peak memory, beside the bound (the convs' and dense layers' FLOPs at the
+    f32 FMA rate, or input, weights and outputs at the HBM rate)."""
+    from group_attribution_for_diffusion_models_tpu_torch.attributions.global_scores import (
+        load_inception, load_vgg16)
+
+    rng = np.random.default_rng(13)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (TOWER_CHECK_IMAGES, 3, 32, 32)).astype(np.float32))
+    batch = torch.from_numpy(rng.uniform(0, 1, (TOWER_BATCH, 3, 32, 32)).astype(np.float32))
+    for name, build, size in (("InceptionV3 (FID, 1008 classes)", load_inception, 299),
+                              ("VGG16Features (fc2, caffe)", load_vgg16, 224)):
+        cpu_model = build(None, device="cpu")
+        flops = tower_flops(torch, cpu_model, 32)
+        with torch.no_grad():
+            want = cpu_model(imgs)
+        del cpu_model
+        model = build(None, device=dev)
+        x = batch.to(dev)
+        with torch.no_grad():
+            got = model(imgs.to(dev))
+            if not isinstance(want, dict):
+                want, got = {"fc2": want}, {"fc2": got}
+            errs = {k: (got[k].cpu() - want[k]).abs().max().item() for k in want}
+            limits = {k: TOWER_TOL * max(1.0, want[k].abs().max().item()) for k in want}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(torch, lambda: model(x), iters=5)
+            dev_ms = device_ms(torch, lambda: model(x), iters=3)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        weights = sum(p.numel() for p in model.parameters())
+        out_numel = sum(v.numel() for v in got.values()) // TOWER_CHECK_IMAGES * TOWER_BATCH
+        bms, by = bound((x.numel() + weights + out_numel) * 4, flops * TOWER_BATCH, "float32")
+        log(f"[scores] {name} at {size}x{size} from 32x32, f32 (TF32 off), card vs CPU on "
+            f"{TOWER_CHECK_IMAGES} images: max_abs_err "
+            + ", ".join(f"{k}={errs[k]:.3g} (tol {limits[k]:.3g})" for k in errs)
+            + f"; batch {TOWER_BATCH} on {card}: {ms:.3f} ms event, {dev_ms:.3f} ms device "
+            f"({TOWER_BATCH / ms * 1e3:.1f} images/s, {ms / TOWER_BATCH:.4f} ms an image), "
+            f"{flops / 1e9:.3f} GFLOP an image ({weights} weights), bound {bms:.3f} ms ({by}; "
+            f"{bms / TOWER_BATCH:.4f} ms an image), {bms / dev_ms:.3f} of it by device time, "
+            f"peak {peak_gib:.2f} GiB")
+        if any(errs[k] > limits[k] for k in errs):
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {errs}")
+        del model, x, got
+        torch.cuda.empty_cache()
+
+
+def check_scores(torch, np, ops, root: str, card: str) -> dict:
+    """shapley_pipeline --behavior fid_value at full width on the stand-in,
+    then calculate_global_scores on its full anchor's checkpoint, each
+    between a counter reset and a read, with the launches the code implies.
+    Returns the summed counts."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        calculate_global_scores, shapley_pipeline)
+    from group_attribution_for_diffusion_models_tpu_torch.utils.jsonl import read_records
+
+    outdir = os.path.join(root, "scores")
+    ref_stats = os.path.join(outdir, "inception_ref_stats.pkl")
+    members = SCORE_FIT + SCORE_TEST + 2  # and the null and full anchors
+    steps = (SCORE_FIT + SCORE_TEST + 1) * SCORE_STEPS
+    # Per member: its steps' forwards and backwards, one forward a DDIM step.
+    want = unet_counts(steps + members * SCORE_SAMPLE_STEPS, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    r = shapley_pipeline.main([
+        "--dataset", "cifar", "--by_class", "--fit_dist", "shapley", "--removal_seed", "0",
+        "--num_fit_subsets", str(SCORE_FIT), "--num_test_subsets", str(SCORE_TEST),
+        "--test_seed_start", str(PIPE_TEST_SEED), "--training_steps", str(SCORE_STEPS),
+        "--batch_size", str(SCORE_BATCH), "--behavior", "fid_value",
+        "--n_samples", str(SCORE_SAMPLES), "--num_inference_steps", str(SCORE_SAMPLE_STEPS),
+        "--no-save_ckpts", "--device", "cuda",
+        "--outdir", outdir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = [x for x in read_records(r["db"]) if "fid_value" in x]
+    fids = [x["fid_value"] for x in rows]
+    sec, row = r["seconds"], r["row"]
+    resid = abs(r["attrs"].sum() - (r["v1"] - r["v0"]))
+    limit = EFFICIENCY_RTOL * max(1.0, abs(r["v1"] - r["v0"]))
+    log(f"[scores] shapley_pipeline --behavior fid_value cifar by class f32 on {card}: "
+        f"{row['num_fit_subsets']} fit and {row['num_test_subsets']} test subsets x "
+        f"{SCORE_STEPS} steps at batch {SCORE_BATCH}, two anchors, {SCORE_SAMPLES} samples x "
+        f"{SCORE_SAMPLE_STEPS} DDIM steps a member; seconds: training {sec['train']:.3f}, "
+        f"sampling {sec['sample']:.3f} ({sec['sample'] / members:.3f} a member), tower "
+        f"{sec['tower']:.3f} (synchronised host clock, with the 2048 reference images), "
+        f"FID math {sec['fid']:.3f} (host, {members} sqrtm, {sec['fid'] / members:.3f} each); "
+        f"pipeline clock {r['train_seconds']:.3f} s, subset_passes_per_hour "
+        f"{row['subset_passes_per_hour']}, call {wall:.3f} s, peak {peak_gib:.2f} GiB; "
+        f"v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual {resid:.3g} (limit "
+        f"{limit:.3g}), lds_pooled {row['lds_pooled']:.4f}; launches {counts} (expected {want})")
+    log(f"[scores] fid_value per member (seed order of the DB): "
+        + ", ".join(f"{x['removal_dist']}:{x['removal_seed']}@{x['training_steps']}="
+                    f"{x['fid_value']:.4f}" for x in rows))
+    if counts != want:
+        raise AssertionError(f"scores path launches {counts}, expected {want}")
+    if not (len(fids) == members and all(math.isfinite(f) and f > 0 for f in fids)):
+        raise AssertionError(f"scores path: fid values {fids}")
+    if not (r["attrs"].shape == (10,) and np.isfinite(r["attrs"]).all() and resid <= limit):
+        raise AssertionError(f"scores path: attributions {r['attrs']}")
+    (anchor,) = [x for x in rows if x["removal_dist"] == "full"
+                 and x["training_steps"] == SCORE_STEPS]
+
+    full = os.path.join(outdir, "cifar", "retrain", "models", "full")
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    g = calculate_global_scores.main([
+        "--dataset", "cifar", "--load", full, "--n_samples", str(SCORE_SAMPLES),
+        "--batch_size", str(SCORE_SAMPLES), "--num_inference_steps", str(SCORE_SAMPLE_STEPS),
+        "--seed", str(SCORE_SEED), "--pr_extractor", "vgg16", "--ref_stats", ref_stats,
+        "--outdir", outdir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    g_counts = ops.launch_counts()
+    g_want = unet_counts(SCORE_SAMPLE_STEPS, 0)
+    rel = abs(g["fid_value"] - anchor["fid_value"]) / anchor["fid_value"]
+    log(f"[scores] calculate_global_scores on the full anchor's checkpoint: fid "
+        f"{g['fid_value']:.6f} (the anchor's pipeline row {anchor['fid_value']:.6f}, rel "
+        f"{rel:.3g}, equal={g['fid_value'] == anchor['fid_value']}), is {g['is']:.6f} "
+        f"(row {anchor['is']:.6f}) +- {g['is_std']:.4f}, precision {g['precision']}, recall "
+        f"{g['recall']} (VGG16 fc2), sampling {g['sampling_time']:.3f} s, scoring "
+        f"{g['scoring_time']:.3f} s, call {g_wall:.3f} s; launches {g_counts} "
+        f"(expected {g_want})")
+    if g_counts != g_want:
+        raise AssertionError(f"calculate_global_scores launches {g_counts}, expected {g_want}")
+    if not (rel <= SCORE_FID_RTOL and abs(g["is"] - anchor["is"]) <= SCORE_FID_RTOL * g["is"]
+            and 0.0 <= g["precision"] <= 1.0 and 0.0 <= g["recall"] <= 1.0):
+        raise AssertionError("calculate_global_scores disagrees with the anchor's row")
+    return {k: counts[k] + g_counts[k] for k in counts}
+
+
 def check_jl_projection(torch, ops, dev):
     """The JL kernel against its plain version at every shape of JL_SHAPES
     (the three TRAK modes' among them) and, with bf16 G, of JL_BF16_SHAPES;
@@ -1273,11 +1453,13 @@ def run(torch, tmp: str) -> int:
     check_trak_step(torch, np, ops, spec, dev)
     trak_counts = check_trak_path(torch, np, ops, grad_features, traks, model_dir, tmp, card)
     pipe_counts = check_pipeline(torch, np, ops, tmp, card)
+    check_towers(torch, np, dev, card)
+    score_counts = check_scores(torch, np, ops, tmp, card)
 
-    # launches: the four main paths, sampling, training, TRAK and the
-    # estimation loop.
+    # launches: the five main paths, sampling, training, TRAK, the estimation
+    # loop and the sample behaviors.
     launches = {k: sample_counts[k] + train_counts[k] + trak_counts[k] + pipe_counts[k]
-                for k in trak_counts}
+                + score_counts[k] for k in trak_counts}
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

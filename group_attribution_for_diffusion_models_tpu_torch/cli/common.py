@@ -5,7 +5,8 @@ ensemble trainer and the TRAK features read: `config_for` (registry lookup,
 plus the tiny ``synthetic_*`` specs the tests use), the model-directory
 layout, the JSONL provenance row, the tracker, `add_common_args` without
 ``--vqvae_weights`` (the LDM slice) and ``--profile_dir`` (a torch profiler
-comes later), and `checkpoint_spec`.
+comes later), and `checkpoint_spec`; and for the scoring CLIs, the sample
+directory loader (`load_sample_dir`) and the reference images of FID.
 """
 
 from __future__ import annotations
@@ -178,3 +179,29 @@ def save_removal_indices(model_dir: str, remaining, removed) -> None:
     os.makedirs(model_dir, exist_ok=True)
     np.save(os.path.join(model_dir, "remaining_idx.npy"), np.asarray(remaining))
     np.save(os.path.join(model_dir, "removed_idx.npy"), np.asarray(removed))
+
+
+def load_sample_dir(path: str) -> np.ndarray:
+    """The .png/.jpg images of a directory, in name order, as RGB (N, H, W, 3)
+    float32 in [0, 1]."""
+    from PIL import Image
+
+    files = sorted(f for f in os.listdir(path) if f.lower().endswith((".png", ".jpg")))
+    if not files:
+        raise SystemExit(f"no .png or .jpg images in {path}")
+    imgs = []
+    for f in files:
+        with Image.open(os.path.join(path, f)) as im:
+            imgs.append(np.asarray(im.convert("RGB"), np.float32) / 255.0)
+    return np.stack(imgs)
+
+
+def as_rgb(images: np.ndarray) -> np.ndarray:
+    """(..., H, W, C) images with a gray channel repeated to 3, for the towers."""
+    return np.repeat(images, 3, axis=-1) if images.shape[-1] == 1 else images
+
+
+def reference_images(dataset, n: int) -> np.ndarray:
+    """The first `n` training images in [0, 1], RGB, NHWC: the reference set
+    FID is measured against."""
+    return as_rgb(dataset.images[:n] / 2.0 + 0.5)

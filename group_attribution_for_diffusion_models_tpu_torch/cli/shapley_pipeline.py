@@ -6,8 +6,10 @@ estimation loop in-process:
   1. train the fit subsets (``--fit_dist``, under ``--method``, from
      ``--load`` for sparse fine-tuning) and the datamodel test subsets (always
      retrained) with chunked ``train_ensemble`` calls, each member scored by
-     its fixed-probe eval loss (``--behavior eval_loss``) or its training
-     loss (``loss``);
+     its fixed-probe eval loss (``--behavior eval_loss``), its training loss
+     (``loss``), or the FID or IS of ``--n_samples`` DDIM samples
+     (``fid_value``, ``is``: in-loop scoring, the reference stats cached at
+     ``<outdir>/inception_ref_stats.pkl`` for every call);
   2. train the null and full anchor models of the fit game (0 and the fit
      budget of steps);
   3. fit the attribution on the fit rows (closed-form KernelSHAP anchored on
@@ -23,11 +25,12 @@ Where the port follows the intended behavior and not the JAX package:
   without ``--training_steps`` keeps its test rows (the JAX CLI records
   ``training_steps: null`` on them and then filters every one out);
 * the 3 LDS test groups come from ``np.array_split``, so no test row is
-  dropped (the JAX CLI cuts ``len // 3`` rows a group).
+  dropped (the JAX CLI cuts ``len // 3`` rows a group);
+* cached reference stats are used only when they carry the tag of the
+  tower in use (``train_ensemble --ref_stats``).
 
-Not ported yet: ``--behavior fid_value`` and ``is`` (the Inception tower,
-ROADMAP queue A item 6) exit with an error. Runs on CUDA unless ``--device
-cpu`` is given.
+Not ported yet: latent (VQ-VAE) workloads (``--vqvae_weights``). Runs on
+CUDA unless ``--device cpu`` is given.
 
 Usage (smoke, CPU):
     python -m group_attribution_for_diffusion_models_tpu_torch.cli.shapley_pipeline \\
@@ -82,7 +85,9 @@ def parse_args(argv=None):
                         help="generated images per member for sample behaviors")
     parser.add_argument("--behavior", type=str, default="eval_loss",
                         choices=["eval_loss", "loss", "fid_value", "is"])
-    parser.add_argument("--inception_weights", type=str, default=None)
+    parser.add_argument("--inception_weights", type=str, default=None,
+                        help="InceptionV3 state dict for --behavior fid_value / is "
+                             "(default: the seeded random tower)")
     parser.add_argument("--chunk_size", type=int, default=32,
                         help="members per train_ensemble call")
     parser.add_argument("--eval_t_min", type=int, default=0)
@@ -101,14 +106,23 @@ def parse_args(argv=None):
 
 def _ensemble_argv(args, db, method, steps):
     """train_ensemble arguments shared by the subset chunks and the anchors."""
+    scored = args.behavior in ("fid_value", "is")
     argv = ["--dataset", args.dataset, "--method", method, "--outdir", args.outdir,
-            "--db", db, "--training_steps", str(steps), "--n_samples", "0",
+            "--db", db, "--training_steps", str(steps),
+            "--n_samples", str(args.n_samples if scored else 0),
             "--num_inference_steps", str(args.num_inference_steps),
             "--log_freq", str(args.log_freq), "--device", args.device]
     if args.behavior == "eval_loss":
         argv += ["--eval_loss", "--eval_t_min", str(args.eval_t_min)]
         if args.eval_t_max:
             argv += ["--eval_t_max", str(args.eval_t_max)]
+    if scored:
+        # In-loop sampling and Inception scoring of every member; the
+        # reference stats cache is shared by the chunks and the anchors.
+        argv += ["--score", {"fid_value": "fid", "is": "is"}[args.behavior],
+                 "--ref_stats", os.path.join(args.outdir, "inception_ref_stats.pkl")]
+        if args.inception_weights:
+            argv += ["--inception_weights", args.inception_weights]
     if args.batch_size:
         argv += ["--batch_size", str(args.batch_size)]
     return argv
@@ -116,9 +130,10 @@ def _ensemble_argv(args, db, method, steps):
 
 def _train_chunked(args, dist, seed_start, num, db, steps, method="retrain", load=None):
     """Train seeds [seed_start, seed_start + num) of `dist`, chunk_size members
-    a train_ensemble call."""
+    a train_ensemble call; returns the calls' summaries."""
     from . import train_ensemble
 
+    summaries = []
     for start in range(seed_start, seed_start + num, args.chunk_size):
         n = min(args.chunk_size, seed_start + num - start)
         argv = _ensemble_argv(args, db, method, steps) + [
@@ -131,19 +146,20 @@ def _train_chunked(args, dist, seed_start, num, db, steps, method="retrain", loa
             argv += ["--by_class"]
         if not args.save_ckpts:
             argv += ["--no-save_ckpts"]
-        train_ensemble.main(argv)
+        summaries.append(train_ensemble.main(argv))
+    return summaries
 
 
 def _anchor(args, db, steps):
     """The fit game's full-data model after `steps` steps (0: the null model,
-    the --load base untouched or a fresh init)."""
+    the --load base untouched or a fresh init); returns the call's summary."""
     from . import train_ensemble
 
     argv = _ensemble_argv(args, db, args.method, steps) + [
         "--removal_dist", "full", "--num_seeds", "1"]
     if args.load:
         argv += ["--load", args.load]
-    train_ensemble.main(argv)
+    return train_ensemble.main(argv)
 
 
 def attribution_units(dataset: str, by_class: bool) -> Tuple[int, Optional[np.ndarray]]:
@@ -256,14 +272,11 @@ def fit_stage(db: str, dataset: str, behavior: str, fit_dist: str, method: str,
 
 def main(argv=None):
     """Run the CLI. Returns the fit stage's dict (attrs, the fit and test
-    (x, y), v1, v0, LDS) with the summary row (`row`), the DB path and the
-    training seconds."""
+    (x, y), v1, v0, LDS) with the summary row (`row`), the DB path, the
+    training seconds (every train_ensemble call, set-up, sampling and scoring
+    included) and `seconds`: that clock's training, sampling, tower and FID
+    math seconds summed over the calls."""
     args = parse_args(argv)
-    if args.behavior in ("fid_value", "is"):
-        raise SystemExit(
-            f"--behavior {args.behavior} needs the Inception tower and in-loop "
-            "scoring, which are not ported yet (ROADMAP queue A item 6)"
-        )
     resolve_device(args.device)
     db = args.db or os.path.join(args.outdir, f"{args.dataset}_pipeline_db.jsonl")
     t0 = time.time()
@@ -299,16 +312,17 @@ def main(argv=None):
     # subsets are always ground-truth retrains, the asymmetry the method
     # comparison rests on. The test budget is passed explicitly (intended
     # behavior; the JAX CLI leaves it out, see the module docstring).
-    _train_chunked(args, args.fit_dist, fit_lo, args.num_fit_subsets, db, fit_steps,
-                   method=args.method, load=args.load)
-    _train_chunked(args, "datamodel", test_lo, args.num_test_subsets, db, test_steps)
+    calls = _train_chunked(args, args.fit_dist, fit_lo, args.num_fit_subsets, db, fit_steps,
+                           method=args.method, load=args.load)
+    calls += _train_chunked(args, "datamodel", test_lo, args.num_test_subsets, db, test_steps)
     # The anchors belong to the fit game: under prune_fine_tune the null model
     # is the loaded pruned base untouched, v1 the base fine-tuned on all data
     # for the fit budget. The null model goes first: the trained full model
     # then claims the 'full' leaf's final checkpoint.
-    _anchor(args, db, 0)
-    _anchor(args, db, fit_steps)
+    calls += [_anchor(args, db, 0), _anchor(args, db, fit_steps)]
     train_time = time.time() - t0
+    seconds = {key: sum(c[f"{key}_seconds"] for c in calls)
+               for key in ("train", "sample", "tower", "fid")}
 
     n_units, labels = attribution_units(args.dataset, args.by_class)
     out = fit_stage(db, args.dataset, args.behavior, args.fit_dist, args.method,
@@ -341,7 +355,7 @@ def main(argv=None):
         f"({n_fit} fit subsets, {summary['subset_passes_per_hour']}/h) "
         f"in {total_time:.1f}s -> {db}"
     )
-    return dict(out, row=summary, db=db, train_seconds=train_time)
+    return dict(out, row=summary, db=db, train_seconds=train_time, seconds=seconds)
 
 
 if __name__ == "__main__":

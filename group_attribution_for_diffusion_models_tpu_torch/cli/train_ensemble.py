@@ -5,15 +5,19 @@ and it draws each seed's removal subset, trains one U-Net per subset
 (`parallel.ensemble.EnsembleTrainer`), optionally records each member's
 fixed-probe eval loss and samples it with DDIM, writes one checkpoint per
 member and appends one JSONL provenance row per member, the rows the LDS
-tier reads. Members whose final checkpoint (or, under --no-save_ckpts,
-whose DB row) already exists are skipped.
+tier reads. With ``--score fid|is|fid_is`` each member's samples are scored
+in the loop: one InceptionV3 pass over every member's samples gives FID
+features (against reference stats of the first 2048 training images, cached
+at ``--ref_stats`` with the tag of the tower that made them) and IS logits,
+written to the rows as ``fid_value`` and ``is``. Members whose final
+checkpoint (or, under --no-save_ckpts, whose DB row) already exists are
+skipped.
 
 Runs on CUDA unless ``--device cpu`` is given; on CUDA, float32 means
 float32 (TF32 off in cuDNN convolutions and CUDA matmuls) and cuDNN runs
 deterministic algorithms, so two runs of a step give bit-identical
 gradients (the attention and GroupNorm kernels use no atomics). Not ported yet:
-in-loop scoring (``--score``, ``--inception_weights``, ``--ref_stats``), the
-device mesh (``--mesh_ensemble``, ``--mesh_data``), latent (VQ-VAE)
+the device mesh (``--mesh_ensemble``, ``--mesh_data``), latent (VQ-VAE)
 workloads and ``--remat_policy``. ``--bf16`` is the JAX CLI's: float32
 parameters and optimizer state, bf16 compute.
 
@@ -32,6 +36,16 @@ import time
 import numpy as np
 import torch
 
+from ..attributions.global_scores import (
+    calculate_fid_from_features,
+    compute_feature_stats,
+    inception_score_from_logits,
+    inception_tag,
+    load_inception,
+    load_reference_stats,
+    make_feature_fn,
+    save_stats,
+)
 from ..config import constants
 from ..data import create_dataset, sample_removal
 from ..diffusion.sampling import make_sampler
@@ -44,15 +58,19 @@ from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
 from .common import (
     add_common_args,
+    as_rgb,
     checkpoint_spec,
     config_for,
     model_output_dir,
     provenance_row,
+    reference_images,
     save_removal_indices,
     tracker_for,
 )
 
 EVAL_PROBE_SEED = 12345
+REF_IMAGES = 2048  # training images the in-loop FID's reference stats are taken over
+TOWER_BATCH = 256
 
 
 def parse_args(argv=None):
@@ -69,6 +87,19 @@ def parse_args(argv=None):
                         help="shared start point for every member (a port checkpoint dir)")
     parser.add_argument("--n_samples", type=int, default=0,
                         help="per-member samples to generate after training")
+    parser.add_argument("--score", type=str, default="none",
+                        choices=["none", "fid", "is", "fid_is"],
+                        help="score each member's generated samples in the loop "
+                             "(needs --n_samples > 0): one InceptionV3 pass yields "
+                             "FID features and IS logits, written to the DB rows "
+                             "as fid_value / is")
+    parser.add_argument("--inception_weights", type=str, default=None,
+                        help="pytorch_fid / torchvision InceptionV3 state dict "
+                             "(default: the seeded random tower)")
+    parser.add_argument("--ref_stats", type=str, default=None,
+                        help="reference-set Inception stats cache, used when its "
+                             "tower tag matches, else computed from the training "
+                             "set and saved here")
     parser.add_argument("--eval_loss", action="store_true", default=False,
                         help="record a deterministic eval loss per member: "
                              "diffusion loss of the EMA weights on a fixed probe "
@@ -147,6 +178,27 @@ def _removals(args, dataset, seeds):
     ]
 
 
+def score_members(samples: np.ndarray, extract, ref_stats=None) -> dict:
+    """Per-member behaviors of `samples` (M, n, H, W, C) in [0, 1]: one
+    feature pass (`extract`, as `make_feature_fn` returns it) over the
+    flattened (M*n) stack, gray repeated to RGB, then each member's IS and,
+    given reference (mu, sigma), its FID. Returns {"fid": [M] or None, "is":
+    [M], "tower_seconds", "fid_seconds"}: the feature pass (its results on
+    the host) and the FID math, on the host clock."""
+    m, n = samples.shape[:2]
+    t0 = time.perf_counter()
+    feats, logits = extract(as_rgb(samples.reshape((m * n,) + samples.shape[2:])))
+    tower_s = time.perf_counter() - t0
+    fid, fid_s = None, 0.0
+    if ref_stats is not None:
+        t0 = time.perf_counter()
+        fid = [calculate_fid_from_features(feats[i * n:(i + 1) * n], ref_stats=ref_stats)
+               for i in range(m)]
+        fid_s = time.perf_counter() - t0
+    is_ = [inception_score_from_logits(logits[i * n:(i + 1) * n])[0] for i in range(m)]
+    return {"fid": fid, "is": is_, "tower_seconds": tower_s, "fid_seconds": fid_s}
+
+
 def _ema_model(model: UNet2D, state: TrainState) -> UNet2D:
     """`model` holding the member's EMA weights."""
     model.load_state_dict(state.state_dicts()[1])
@@ -158,8 +210,13 @@ def main(argv=None):
     the per-member batch size (the smallest subset's size caps it, as in the
     JAX CLI), train and sampling seconds, per-member final loss and eval loss (None
     without --eval_loss), the samples (M, n, C, H, W) as a numpy array (None
-    without --n_samples), the DB path and the member model dirs."""
+    without --n_samples), with --score the per-member FID (None without
+    fid) and IS and the seconds of the tower's feature passes (the
+    reference set's included) and of the FID math, the DB path and the
+    member model dirs."""
     args = parse_args(argv)
+    if args.score != "none" and args.n_samples <= 0:
+        raise SystemExit(f"--score {args.score} needs --n_samples > 0")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
@@ -209,6 +266,12 @@ def main(argv=None):
             if (rec.get("eval_t_min", args.eval_t_min) != args.eval_t_min
                     or rec.get("eval_t_max", args.eval_t_max) != args.eval_t_max):
                 continue
+            # A row trained without in-loop scoring does not satisfy a scored
+            # run: the behavior value is the product.
+            if "fid" in args.score and rec.get("fid_value") is None:
+                continue
+            if "is" in args.score and rec.get("is") is None:
+                continue
             return True
         return False
 
@@ -216,7 +279,9 @@ def main(argv=None):
     seeds = [s for s in seeds if s not in skipped]
     summary = {"seeds": seeds, "skipped": skipped, "batch_size": None, "train_seconds": 0.0,
                "sample_seconds": 0.0, "losses": [], "eval_losses": None,
-               "samples": None, "db": db, "model_dirs": [member_dir(s) for s in seeds]}
+               "samples": None, "fid_values": None, "is_values": None,
+               "tower_seconds": 0.0, "fid_seconds": 0.0,
+               "db": db, "model_dirs": [member_dir(s) for s in seeds]}
     if skipped:
         print(f"skipping {len(skipped)} already-complete seeds: {skipped}")
     if not seeds:
@@ -328,6 +393,34 @@ def main(argv=None):
         print(f"sampled {samples.shape} in {sample_time:.1f}s")
         summary.update(sample_seconds=sample_time, samples=samples)
 
+    scores = {"fid": None, "is": None}
+    scoring_time = 0.0
+    if args.score != "none":
+        t0 = time.perf_counter()
+        extract = make_feature_fn(load_inception(args.inception_weights, device=device),
+                                  batch_size=TOWER_BATCH)
+        ref_stats, ref_tower_s = None, 0.0
+        if "fid" in args.score:
+            tag = inception_tag(args.inception_weights)
+            ref_stats = load_reference_stats(args.ref_stats, tag)
+            if ref_stats is None:
+                t1 = time.perf_counter()
+                ref_stats = compute_feature_stats(
+                    extract(reference_images(dataset, REF_IMAGES))[0])
+                ref_tower_s = time.perf_counter() - t1
+                if args.ref_stats:
+                    save_stats(args.ref_stats, *ref_stats, tower=tag)
+        scores = score_members(samples.transpose(0, 1, 3, 4, 2), extract, ref_stats)
+        scoring_time = time.perf_counter() - t0
+        tower_s = scores["tower_seconds"] + ref_tower_s
+        peak = (f", peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+                if device.type == "cuda" else "")
+        print(f"scored {len(seeds)} members in {scoring_time:.1f}s (tower {tower_s:.2f}s, "
+              f"reference set {ref_tower_s:.2f}s of it; FID math {scores['fid_seconds']:.2f}s"
+              f"{peak}); fid={scores['fid']}, is={scores['is']}")
+        summary.update(fid_values=scores["fid"], is_values=scores["is"],
+                       tower_seconds=tower_s, fid_seconds=scores["fid_seconds"])
+
     for m, seed in enumerate(seeds):
         remaining_idx, removed_idx = removals[m]
         model_dir = member_dir(seed)
@@ -343,13 +436,13 @@ def main(argv=None):
             removal_seed=seed,
             loss=float(losses[m]),
             eval_loss=float(eval_losses[m]) if eval_losses is not None else None,
-            fid_value=None,
-            **{"is": None},
+            fid_value=float(scores["fid"][m]) if scores["fid"] is not None else None,
+            **{"is": float(scores["is"][m]) if scores["is"] is not None else None},
             remaining_idx=remaining_idx,
             removed_idx=removed_idx,
             total_steps_time=train_time / len(seeds),
             sampling_time=sample_time / len(seeds),
-            scoring_time=0.0,
+            scoring_time=scoring_time / len(seeds),
             model_dir=model_dir,
         )
         append_record(db, row)
