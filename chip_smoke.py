@@ -71,17 +71,39 @@ Phases (one line each; any failure raises and exits non-zero):
     batch 256 (event and device time, images/s, peak memory) beside its
     bound from the layer shapes; the same for VGG16Features at 224. Then
     the main path of the sample behaviors: ``cli.shapley_pipeline.main
-    --behavior fid_value`` at full width on the stand-in (by class, 4
-    shapley fit and 6 datamodel test subsets, 20 steps at batch 64, the two
+    --behavior fid_value`` at full width on the stand-in (by class, 2
+    shapley fit and 4 datamodel test subsets, 20 steps at batch 64, the two
     anchors, 256 DDIM samples of 20 steps a member scored in the loop), its
     seconds split into training, sampling, tower and FID math, launches,
     every member's FID and the efficiency constraint asserted; then
     ``cli.calculate_global_scores.main`` on the full anchor's checkpoint
     (the same 256 samples: FID and IS equal to the anchor's row; precision
     and recall on VGG16 features).
+12. ldm: the latent-diffusion workload at full CelebA width (the 274M U-Net,
+    the full VQ-VAE, the full BLIP tower, seeded random inits) on a seeded
+    CelebA-HQ stand-in (128 smooth 256x256 PNGs, labels.csv of 8 integer
+    celebrity ids): the attention kernels at the U-Net's three head-dim-32
+    shapes and every GroupNorm of a U-Net pass (batch 32) and of a VQ-VAE
+    encode and decode (batch 8, the streaming class) against their plain
+    versions, repeated bit for bit, timed beside their bounds, library and
+    plain times; the plain f32 route of the VQ's D=512 mid attention timed.
+    Then ``cli.train_vqvae.main`` (3 steps at batch 8),
+    ``cli.shapley_pipeline.main --dataset celeba --vqvae_weights`` (by
+    celebrity, 3 fit and 2 test subsets, 3 steps at batch 32, the two
+    anchors; one encode of the stand-in, then its cache), ``cli.
+    generate_samples.main`` (16 images x 50 DDIM steps decoded to 256x256
+    PNGs, all distinct), a card-vs-CPU reference at batch 1 (3 DDIM steps and
+    the decode, encode -> quantize of a stand-in image, codes agreeing at
+    99% or more), and ``cli.calculate_global_scores_diversity.main`` (32
+    samples, 128 reference images, 8 clusters, the full random BLIP tower),
+    each with its launches and plain-route calls reckoned from the spec;
+    and one member trained with and without ``--remat --remat_policy convs``
+    (the JAX package's CelebA option): the same weights bit for bit, the
+    recompute's launches, the peak memory of each.
 
 Each main path runs with the kernels' launch counters reset just before and
-read just after, and asserts the counts the code implies. The last two lines
+read just after, and asserts the counts the code implies; the plain
+attention route's calls are counted apart and taken only in [ldm]. The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``. Without
 CUDA it exits non-zero and prints no result.
 """
@@ -92,6 +114,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -186,9 +209,10 @@ EFFICIENCY_RTOL = 1e-6
 # [scores]: the towers card vs CPU, |d| <= TOWER_TOL * max(1, max |CPU|) (about 95 f32
 # layers summed in other orders; tests/test_inception_numeric.py's tolerance).
 TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 8, 256
-# shapley_pipeline --behavior fid_value at full width: shapley seeds 0..3 keep 1-9
-# classes, datamodel seeds 42..47 keep 5; every member scored on its own samples.
-SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 4, 6, 20, 64
+# shapley_pipeline --behavior fid_value at full width: shapley seeds 0..1 keep 1-9
+# classes, datamodel seeds 42..45 keep 5; every member scored on its own samples.
+# Two fit and four test subsets keep the whole script near 10 minutes.
+SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 4, 20, 64
 SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 20, 42
 # calculate_global_scores --seed SCORE_SEED on the anchor's checkpoint draws the
 # anchor's own samples (train_ensemble's default --opt_seed, which the pipeline
@@ -200,6 +224,35 @@ SCORE_FID_RTOL = 1e-6
 # one), max |d| / max |ref| over outputs and over all gradients.
 MEMBERS, MEMBERS_BATCH, MEMBERS_RTOL = 2, 4, 1e-4
 STEPS, BATCH, N_BATCHES = 100, 64, 2
+# [ldm]: the latent-diffusion workload at full CelebA width (get_config("celeba"):
+# a 274,056,163-parameter U-Net on 64x64x3 latents of the full VQVAESpec) on a
+# CelebA-HQ stand-in of LDM_IMAGES seeded smooth 256x256 PNGs, LDM_IMAGES /
+# len(LDM_IDS) a celebrity id; 2 and 10 among the ids test the group codes'
+# numeric sort.
+LDM_IMAGES, LDM_IDS = 128, (2, 10, 3, 7, 11, 23, 40, 101)
+LDM_VQ_STEPS, LDM_VQ_BATCH = 3, 8  # train_vqvae at the full VQVAESpec
+# shapley_pipeline --dataset celeba by celebrity: shapley seeds 0..2 keep 5, 3 and 3
+# of the 8 groups (48 or more images) and datamodel seeds 42, 43 keep 4, so every
+# member trains at batch 32.
+LDM_FIT, LDM_TEST, LDM_STEPS, LDM_BATCH = 3, 2, 3, 32
+LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 50  # generate_samples, one batch
+LDM_DIV_SAMPLES, LDM_DIV_STEPS, LDM_CLUSTERS = 32, 20, 8  # and 4 x 32 reference images
+LDM_ATTN_SHAPES = [  # the CelebA U-Net's attention at training batch 32, head dim 32
+    (32, 1024, 1024, 14, 32),  # 32x32 latents
+    (32, 256, 256, 21, 32),    # 16x16
+    (32, 64, 64, 28, 32),      # 8x8
+]
+# The VQ-VAE's mid attention, one head of 512 at 64x64 (the plain route): at
+# train_vqvae's batch and at the encode's.
+VQ_ATTN_SHAPES = [(LDM_VQ_BATCH, 4096, 1, 512), (32, 4096, 1, 512)]
+# Card vs CPU at batch 1, f32, TF32 off: 3 DDIM steps of the full-width U-Net
+# (30 resnets and 16 attention layers summed in other orders; CIFAR's 22
+# resnets hold 5e-4 after one forward) on latents of order 1; the VQ decoder
+# on images in [0, 1], as SAMPLE_ATOL; the encoder's latents as the U-Net's
+# forward. Codes of the same latents: at least LDM_CODE_AGREEMENT of the 4096
+# positions agree (a latent within rounding of two codes may part).
+LDM_LATENT_ATOL, LDM_DECODE_ATOL, LDM_ENCODE_ATOL = 2e-3, 2e-3, 1e-3
+LDM_CODE_AGREEMENT, LDM_REF_STEPS = 0.99, 3
 
 
 def log(msg: str) -> None:
@@ -300,6 +353,26 @@ def write_cifar_standin(root: str, n: int, seed: int = 0) -> None:
             pickle.dump(entry, f)
 
 
+def write_celeba_standin(root: str, n: int = LDM_IMAGES, ids=LDM_IDS, seed: int = 0) -> None:
+    """A seeded stand-in for CelebA-HQ 256's layout: <root>/celeba_hq/train/ with
+    `n` smooth 256x256 RGB PNGs (an 8x8 random image resized bilinearly) and a
+    labels.csv of (filename, celeb), n / len(ids) images to each integer id."""
+    import numpy as np
+    from PIL import Image
+
+    base = os.path.join(root, "celeba_hq", "train")
+    os.makedirs(base)
+    rng = np.random.default_rng(seed)
+    celebs = rng.permutation(np.repeat(np.asarray(ids), n // len(ids)))
+    lines = ["filename,celeb"]
+    for i in range(n):
+        small = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+        small.resize((256, 256), Image.BILINEAR).save(os.path.join(base, f"{i:05d}.png"))
+        lines.append(f"{i:05d}.png,{celebs[i]}")
+    with open(os.path.join(base, "labels.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def reset_counts(ops) -> None:
     for fn in ops.KERNELS.values():
         fn.launches = 0
@@ -321,15 +394,16 @@ def unet_counts(forwards: int, backwards: int, jl: int = 0, attention_only: int 
             "group_norm_fwd": 51 * forwards, "group_norm_bwd": gn_bwd, "jl_projection": jl}
 
 
-def check_attention(torch, F, ops, dev):
-    """The forward kernel against its plain version at ATTN_SHAPES (timed,
-    with SDPA's time, event-timed and by the profiler) and ATTN_BWD_EXTRA
-    (held only), each row repeated bit for bit. The bound counts the two
+def check_attention(torch, F, ops, dev, timed_shapes=ATTN_SHAPES, held=ATTN_BWD_EXTRA,
+                    label="kernels"):
+    """The forward kernel against its plain version at `timed_shapes` (timed,
+    with SDPA's time, event-timed and by the profiler) and `held` (held
+    only), each row repeated bit for bit. The bound counts the two
     products at the tensor cores' rate for the kernel's route (TC_FLOPS);
     the f32 FMA bound of the SIMT kernel it replaced is printed beside it."""
     rows = {}
-    for (b, sq, skv, h, d) in ATTN_SHAPES + ATTN_BWD_EXTRA:
-        timed = (b, sq, skv, h, d) in ATTN_SHAPES
+    for (b, sq, skv, h, d) in timed_shapes + held:
+        timed = (b, sq, skv, h, d) in timed_shapes
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             g = torch.Generator(device=dev).manual_seed(0)
@@ -340,7 +414,7 @@ def check_attention(torch, F, ops, dev):
             torch.cuda.synchronize()
             err, ok = compare(got, want, name)
             same = torch.equal(got, ops.attention_kernel(q, k, v))
-            head = (f"[kernels] attention B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
+            head = (f"[{label}] attention B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
                     f"max_abs_err={err:.3g} (tol {TOL[name]}), bitwise repeatable={same}")
             if not timed:
                 log(head)
@@ -435,20 +509,21 @@ def check_attention_bwd_once(torch, ops, q, k, v, do, name):
     return dq_cmp, dkv_cmp, same, (lse, delta)
 
 
-def check_attention_bwd(torch, F, ops, dev):
-    """Both backward passes against their plain versions, at ATTN_SHAPES
-    (timed) and ATTN_BWD_EXTRA (held and repeated only). Returns per-pass
+def check_attention_bwd(torch, F, ops, dev, timed_shapes=ATTN_SHAPES, held=ATTN_BWD_EXTRA,
+                        label="kernels"):
+    """Both backward passes against their plain versions, at `timed_shapes`
+    (timed) and `held` (held and repeated only). Returns per-pass
     rows {(shape, dtype): {"dq": {...}, "dkv": {...}}}. The least work of the
     whole backward is 10*B*H*Sq*Skv*D FLOPs (S once, then P.V, dO.V^T, dS.K,
     dS^T.Q, P^T.dO); of the dQ pass alone 6 (S, dO.V^T, dS.K, with delta =
     rowsum(P * dP)), of the dK/dV pass alone 8. The JAX kernels' scheme does
     16, these kernels BWD_UNITS. The bound counts the least work at the tensor
     cores' rate for the kernels' route (TC_FLOPS)."""
-    log(f"[kernels] attention_bwd least work 10*B*H*Sq*Skv*D FLOPs (the bound below, at "
+    log(f"[{label}] attention_bwd least work 10*B*H*Sq*Skv*D FLOPs (the bound below, at "
         f"{TC_FLOPS['float32'] / 1e12:.0f} TFLOP/s in f32 (3 TF32 products at 495) and "
         f"{TC_FLOPS['bfloat16'] / 1e12:.0f} in bf16, on the tensor cores); the JAX kernels' "
         f"scheme does 16*B*H*Sq*Skv*D, these kernels {BWD_UNITS}")
-    for (b, sq, skv, h, d) in ATTN_BWD_EXTRA:
+    for (b, sq, skv, h, d) in held:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             g = torch.Generator(device=dev).manual_seed(3)
@@ -456,7 +531,7 @@ def check_attention_bwd(torch, F, ops, dev):
                            for s in (sq, skv, skv, sq))
             dq_cmp, dkv_cmp, same, _ = check_attention_bwd_once(torch, ops, q, k, v, do, name)
             err = max(e for e, _ in dq_cmp + dkv_cmp)
-            log(f"[kernels] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
+            log(f"[{label}] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
                 f"max_abs_err dq={dq_cmp[0][0]:.3g} lse={dq_cmp[1][0]:.3g} "
                 f"delta={dq_cmp[2][0]:.3g} dk={dkv_cmp[0][0]:.3g} dv={dkv_cmp[1][0]:.3g} "
                 f"(tol {TOL[name]}), bitwise repeatable={same}")
@@ -464,7 +539,7 @@ def check_attention_bwd(torch, F, ops, dev):
                 raise AssertionError(f"attention backward kernels disagree: {err}, "
                                      f"repeatable={same}")
     rows = {}
-    for (b, sq, skv, h, d) in ATTN_SHAPES:
+    for (b, sq, skv, h, d) in timed_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             g = torch.Generator(device=dev).manual_seed(3)
@@ -494,7 +569,7 @@ def check_attention_bwd(torch, F, ops, dev):
             dkv_b, dkv_by = bound((2 * sq + 4 * skv) * b * h * d * es + stats, 8.0 * unit, name,
                                   TC_FLOPS)
             err = max(e for e, _ in dq_cmp + dkv_cmp)
-            log(f"[kernels] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
+            log(f"[{label}] attention_bwd B={b} Sq={sq} Skv={skv} H={h} D={d} {name}: "
                 f"max_abs_err dq={dq_cmp[0][0]:.3g} lse={dq_cmp[1][0]:.3g} "
                 f"delta={dq_cmp[2][0]:.3g} dk={dkv_cmp[0][0]:.3g} dv={dkv_cmp[1][0]:.3g} "
                 f"(tol {TOL[name]}), bitwise repeatable={same}; kernel_ms dq={dq_ms:.4f} "
@@ -566,14 +641,31 @@ def check_group_norm_bwd(torch, F, ops, dev):
     return rows
 
 
-def gn_census_of(torch, spec) -> list:
+def gn_census_of(torch, spec, device="cpu") -> list:
     """Every GroupNorm of a `spec` U-Net forward as (C, H, W, silu, launches),
-    in order of first use, from forward pre-hooks on a batch-1 pass on the
-    CPU."""
+    in order of first use, from forward pre-hooks on a batch-1 pass on
+    `device`."""
     from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+
+    model = UNet2D(spec).eval().to(device)
+    return _census(torch, model, lambda: model(
+        torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size, device=device),
+        torch.zeros(1, dtype=torch.long, device=device)))
+
+
+def vq_gn_census(torch, spec, device) -> list:
+    """Every GroupNorm of a VQ-VAE encode and decode (the train step's
+    forward), as `gn_census_of`."""
+    from group_attribution_for_diffusion_models_tpu_torch.models.vqvae import VQVAE
+
+    model = VQVAE(spec).eval().to(device)
+    x = torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size, device=device)
+    return _census(torch, model, lambda: model.decode(model.encode(x), force_not_quantize=True))
+
+
+def _census(torch, model, run) -> list:
     from group_attribution_for_diffusion_models_tpu_torch.models.layers import GroupNormSiLU
 
-    model = UNet2D(spec).eval()
     seen: dict = {}
 
     def hook(mod, inputs):
@@ -583,61 +675,72 @@ def gn_census_of(torch, spec) -> list:
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
                if isinstance(m, GroupNormSiLU)]
     with torch.no_grad():
-        model(torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size),
-              torch.zeros(1, dtype=torch.long))
+        run()
     for h in handles:
         h.remove()
     return [(c, h, w, silu, n) for (c, h, w, silu), n in seen.items()]
 
 
-def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=None):
-    """Every GroupNorm shape of a U-Net pass (`census`, default the CIFAR
-    U-Net's GN_CENSUS) at GN_CENSUS_BATCH, in f32 and bf16: both kernels held
-    against their plain versions (TOL, SUM_TOL) and repeated bit for bit,
-    then timed by the profiler's device time: the forward kernel, the
-    backward kernel, and the backward as autograd runs it (the kernel, then
-    the sum of its partials over the batch). Totals per U-Net forward and
-    backward, weighted by launches, beside their bytes bounds (x read and y
-    written; x and dy read and dx written). A shape already in `cache` (a
-    dict this fills) is not held or timed again. Returns {dtype: totals}."""
+def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=None,
+                    batch=GN_CENSUS_BATCH, eps=1e-6, dtypes=("float32", "bfloat16"),
+                    library=False, what="U-Net pass"):
+    """Every GroupNorm shape of a pass (`census`, default the CIFAR U-Net's
+    GN_CENSUS) at `batch` and `eps`, in `dtypes`: both kernels held against
+    their plain versions (TOL, SUM_TOL) and repeated bit for bit, then timed
+    by the profiler's device time: the forward kernel, the backward kernel,
+    and the backward as autograd runs it (the kernel, then the sum of its
+    partials over the batch); with `library`, also F.group_norm (+ F.silu)
+    forward and autograd backward and both plain versions, event-timed. Totals per pass forward and backward, weighted by launches,
+    beside their bytes bounds (x read and y written; x and dy read and dx
+    written). A shape already in `cache` (a dict this fills) is not held or
+    timed again. Returns {dtype: totals}, each with its shapes' rows."""
     cache = {} if cache is None else cache
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (getattr(torch, n) for n in dtypes):
         name = str(dtype).split(".")[1]
         tot = dict(fwd_ms=0.0, bwd_kernel_ms=0.0, bwd_ms=0.0, fwd_bound_ms=0.0,
                    bwd_bound_ms=0.0, launches=0)
+        rows = []
         for c, h, w, silu, launches in census:
-            key = (c, h, w, silu, name)
+            key = (batch, c, h, w, silu, eps, name)
             if key not in cache:
-                cache[key] = _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name)
+                cache[key] = _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name,
+                                              batch, eps, library)
                 row = cache[key]
-                log(f"[{label}] group_norm {(GN_CENSUS_BATCH, c, h, w)} G=32 cpg={c // 32} "
+                lib = (f"; library ms forward={row['lib_fwd_ms']:.4f} backward="
+                       f"{row['lib_bwd_ms']:.4f}; plain ms forward={row['plain_fwd_ms']:.4f} "
+                       f"backward={row['plain_bwd_ms']:.4f}" if library else "")
+                log(f"[{label}] group_norm {(batch, c, h, w)} G=32 cpg={c // 32} eps={eps} "
                     f"silu={silu} {name} x{launches}: max_abs_err out={row['out_err']:.3g} "
                     f"dx={row['dx_err']:.3g} (tol {TOL[name]}), mean/rstd/partials="
                     f"{row['stat_err']:.3g}, bitwise repeatable=True; device ms: forward="
                     f"{row['fwd_ms']:.4f} (bound {row['fwd_bound_ms']:.4f}), backward kernel="
                     f"{row['bwd_kernel_ms']:.4f}, with the sum={row['bwd_ms']:.4f} "
-                    f"(bound {row['bwd_bound_ms']:.4f})")
+                    f"(bound {row['bwd_bound_ms']:.4f}){lib}")
+            rows.append(dict(cache[key], shape=(batch, c, h, w), silu=silu, launches=launches))
             for k in tot:
                 tot[k] += launches * (1 if k == "launches" else cache[key][k])
-        log(f"[{label}] {name} per U-Net pass at batch {GN_CENSUS_BATCH} "
+        log(f"[{label}] {name} per {what} at batch {batch} "
             f"({tot['launches']} launches): "
             f"forward {tot['fwd_ms']:.4f} ms (bound {tot['fwd_bound_ms']:.4f}), backward "
             f"{tot['bwd_ms']:.4f} ms with the sums, {tot['bwd_kernel_ms']:.4f} kernels alone "
             f"(bound {tot['bwd_bound_ms']:.4f}), device time")
-        out[name] = tot
+        out[name] = dict(tot, rows=rows)
     return out
 
 
-def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name) -> dict:
+def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name, batch=GN_CENSUS_BATCH,
+                     eps=1e-6, library=False) -> dict:
     """One census shape: both kernels held and repeated, then timed."""
-    shape = (GN_CENSUS_BATCH, c, h, w)
+    import torch.nn.functional as F
+
+    shape = (batch, c, h, w)
     g = torch.Generator(device=dev).manual_seed(8)
     x = (torch.randn(shape, generator=g, device=dev) * 3 + 0.5).to(dtype)
     gamma = torch.randn(c, generator=g, device=dev) + 1
     beta = torch.randn(c, generator=g, device=dev)
     dy = torch.randn(shape, generator=g, device=dev).to(dtype)
-    args = (x, gamma, beta, 32, 1e-6, silu, dtype)
+    args = (x, gamma, beta, 32, eps, silu, dtype)
     got, want = ops.group_norm_kernel(*args), ops.group_norm_silu_plain(*args)
     bargs = (x, dy, gamma, beta, want[1], want[2], 32, silu)
     got_b = gn_bwd(ops, *bargs)
@@ -654,13 +757,30 @@ def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name) -> dict:
     fwd = device_ms(torch, lambda: ops.group_norm_kernel(*args))
     bwd_kernel = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*bargs))
     xr, gr, br = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
-    y = ops.group_norm_silu(xr, gr, br, groups=32, eps=1e-6, silu=silu)
+    y = ops.group_norm_silu(xr, gr, br, groups=32, eps=eps, silu=silu)
     bwd = device_ms(torch, lambda: torch.autograd.grad(y, (xr, gr, br), dy, retain_graph=True))
     nbytes = x.numel() * x.element_size()
-    return dict(out_err=checks[0][0], dx_err=checks[1][0],
-                stat_err=max(e for e, _ in checks[2:]), fwd_ms=fwd, bwd_kernel_ms=bwd_kernel,
-                bwd_ms=bwd, fwd_bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
-                bwd_bound_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
+    row = dict(out_err=checks[0][0], dx_err=checks[1][0],
+               stat_err=max(e for e, _ in checks[2:]), fwd_ms=fwd, bwd_kernel_ms=bwd_kernel,
+               bwd_ms=bwd, fwd_bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+               bwd_bound_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
+    if library:
+        del y
+
+        def lib(xx, gg, bb):
+            yy = F.group_norm(xx, 32, gg.to(dtype), bb.to(dtype), eps)
+            return F.silu(yy) if silu else yy
+
+        # Event-timed: a trace can drop one of a library call's several kernels.
+        row["lib_fwd_ms"] = cuda_ms(torch, lambda: lib(x, gamma, beta), iters=5)
+        yl = lib(xr, gr, br)
+        row["lib_bwd_ms"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(yl, (xr, gr, br), dy, retain_graph=True), iters=5)
+        del yl
+        row["plain_fwd_ms"] = cuda_ms(torch, lambda: ops.group_norm_silu_plain(*args), iters=5)
+        row["plain_bwd_ms"] = cuda_ms(
+            torch, lambda: ops.group_norm_silu_bwd_plain(*bargs), iters=5)
+    return row
 
 
 def check_prune_gn(torch, np, ops, model, spec, dev, cache):
@@ -944,6 +1064,339 @@ def check_scores(torch, np, ops, root: str, card: str) -> dict:
             and 0.0 <= g["precision"] <= 1.0 and 0.0 <= g["recall"] <= 1.0):
         raise AssertionError("calculate_global_scores disagrees with the anchor's row")
     return {k: counts[k] + g_counts[k] for k in counts}
+
+
+def model_counts(attn: int, gn: int, forwards: int, backwards: int = 0) -> dict:
+    """Kernel launches of a model with `attn` attention layers the kernels take
+    and `gn` GroupNorms, per forward and per backward."""
+    return {"attention_fwd": attn * forwards, "attention_bwd_dq": attn * backwards,
+            "attention_bwd_dkv": attn * backwards, "group_norm_fwd": gn * forwards,
+            "group_norm_bwd": gn * backwards, "jl_projection": 0}
+
+
+def add_counts(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def expect(label, counts, routes, want, want_routes) -> None:
+    """Kernel launches and plain-route calls of an [ldm] main path against
+    those reckoned from the spec."""
+    log(f"[ldm] {label} launches {counts} (expected {want}), plain route {routes} "
+        f"(expected {want_routes})")
+    if counts != want or routes != want_routes:
+        raise AssertionError(f"{label}: launches {counts} {routes}, expected {want} "
+                             f"{want_routes}")
+
+
+def check_plain_route(torch, F, ops, dev, label="ldm"):
+    """The plain f32 attention the VQ-VAE's mid attention takes on the card
+    (head dim 512, which the kernels do not take): what the route runs,
+    forward at VQ_ATTN_SHAPES and backward at train_vqvae's batch, timed with
+    SDPA's time and the bound (the products at the f32 FMA rate), peak
+    memory beside; the route's counter moves once a call."""
+    for i, (b, s_, h, d) in enumerate(VQ_ATTN_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(14)
+        q, k, v = (torch.randn(b, s_, h, d, generator=g, device=dev) for _ in range(3))
+        before = ops.route_counts()["attention_plain_fwd"]
+        out = ops.attention_plain_route(q, k, v)
+        if ops.route_counts()["attention_plain_fwd"] != before + 1:
+            raise AssertionError("the plain route did not count its call")
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: ops.attention_plain(q, k, v), iters=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=3)
+        flops = 4.0 * b * h * s_ * s_ * d
+        bms, by = bound(4 * q.numel() * 4, flops, "float32")
+        log(f"[{label}] plain route attention B={b} S={s_} H={h} D={d} float32 (the VQ mid "
+            f"attention): plain_ms={ms:.3f} (peak {peak:.2f} GiB) library_ms={lib_ms:.3f} "
+            f"(SDPA) bound_ms={bms:.3f} ({by}, f32 FMA)")
+        if i == 0:
+            do = torch.randn(b, s_, h, d, generator=g, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            bwd_ms = cuda_ms(torch, lambda: ops.attention_bwd_plain(q, k, v, do), iters=3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qg, kg, vg)
+            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                o, (qg, kg, vg), do.transpose(1, 2), retain_graph=True), iters=3)
+            bms, by = bound(8 * q.numel() * 4, 2.5 * flops, "float32")
+            log(f"[{label}] plain route attention backward B={b} S={s_} D={d} float32: "
+                f"plain_ms={bwd_ms:.3f} (peak {peak:.2f} GiB) library_ms={lib_bwd:.3f} "
+                f"(SDPA autograd) bound_ms={bms:.3f} ({by}, f32 FMA)")
+            del o, qg, kg, vg
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
+    """The latent-diffusion workload at full CelebA width: the kernels at its
+    shapes, then its main paths, each between a counter reset and a read with
+    the launches (and plain-route calls) reckoned from the spec: train_vqvae,
+    shapley_pipeline --dataset celeba, generate_samples (decoded to 256x256
+    PNGs), a card-vs-CPU reference of sampling, decode and encode -> quantize,
+    and calculate_global_scores_diversity with the full random BLIP tower.
+    Returns the summed kernel launches of the main paths."""
+    import torch.nn.functional as F
+    from PIL import Image
+
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        calculate_global_scores_diversity, generate_samples, shapley_pipeline, train_ensemble,
+        train_vqvae)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.data import create_dataset
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.models.blip_vision import (
+        load_blip_vision)
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        GroupNormSiLU, SelfAttention2D)
+    from group_attribution_for_diffusion_models_tpu_torch.models.vqvae import (
+        VQVAE, load_vqvae, make_vq_decode_fn)
+    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import load_checkpoint
+
+    if any(ops.route_counts().values()):
+        raise AssertionError(f"an earlier phase took the plain route: {ops.route_counts()}")
+    cfg = get_config("celeba")
+    spec, vq = cfg.unet, cfg.vqvae
+    with torch.device("meta"):
+        unet, vqvae = UNet2D(spec), VQVAE(vq)
+    n_attn = sum(isinstance(m, SelfAttention2D) for m in unet.modules())
+    n_gn = sum(isinstance(m, GroupNormSiLU) for m in unet.modules())
+    n_enc = sum(isinstance(m, GroupNormSiLU) for m in vqvae.encoder.modules())
+    n_dec = sum(isinstance(m, GroupNormSiLU) for m in vqvae.decoder.modules())
+    n_params = sum(p.numel() for p in unet.parameters())
+    log(f"[ldm] celeba U-Net {n_params} params, {n_attn} attention layers, {n_gn} GroupNorms a "
+        f"forward; VQ-VAE {sum(p.numel() for p in vqvae.parameters())} params, GroupNorms "
+        f"encoder {n_enc}, decoder {n_dec}, one mid attention each (D=512, the plain route)")
+    del unet, vqvae
+
+    def encodes(n):  # n VQ encodes: their GroupNorms and plain-route forwards
+        return (dict(model_counts(0, n_enc, n)), {"attention_plain_fwd": n,
+                                                  "attention_plain_bwd": 0})
+
+    def decodes(n):
+        return (dict(model_counts(0, n_dec, n)), {"attention_plain_fwd": n,
+                                                  "attention_plain_bwd": 0})
+
+    def timed(fn, argv):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        for r in ops.PLAIN_ROUTES.values():
+            r.launches = 0
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, ops.launch_counts(), ops.route_counts(),
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    # Kernels at the workload's shapes.
+    unet_census = gn_census_of(torch, spec, device=dev)
+    vq_census = vq_gn_census(torch, vq, dev)
+    if sum(n for *_, n in unet_census) != n_gn or sum(n for *_, n in vq_census) != n_enc + n_dec:
+        raise AssertionError("the census helpers disagree with the models' GroupNorms")
+    check_attention(torch, F, ops, dev, LDM_ATTN_SHAPES, [], "ldm")
+    check_attention_bwd(torch, F, ops, dev, LDM_ATTN_SHAPES, [], "ldm")
+    check_gn_census(torch, ops, dev, unet_census, label="ldm", batch=LDM_BATCH,
+                    eps=spec.norm_eps, dtypes=("float32",), library=True,
+                    what="CelebA U-Net pass")
+    check_gn_census(torch, ops, dev, vq_census, label="ldm", batch=LDM_VQ_BATCH, eps=1e-6,
+                    dtypes=("float32",), library=True, what="VQ-VAE encode and decode")
+    check_plain_route(torch, F, ops, dev)
+
+    outdir = os.path.join(root, "ldm")
+    # train_vqvae: each step an encode and a decode, forward and backward.
+    vq_out, vq_wall, counts, routes, peak = timed(train_vqvae.main, [
+        "--dataset", "celeba", "--outdir", outdir, "--training_steps", str(LDM_VQ_STEPS),
+        "--batch_size", str(LDM_VQ_BATCH), "--log_freq", "1", "--device", "cuda"])
+    weights = vq_out["weights_out"]
+    log(f"[ldm] train_vqvae celeba full VQVAESpec {LDM_VQ_STEPS} steps at batch "
+        f"{LDM_VQ_BATCH} f32 on {card}: {vq_out['train_seconds']:.3f} s "
+        f"({vq_out['train_seconds'] / LDM_VQ_STEPS:.4f} s a step, the first with warm-up), "
+        f"call {vq_wall:.3f} s, peak {peak:.2f} GiB; loss {vq_out['loss']:.5f}, recon "
+        f"{vq_out['recon']:.5f}, perplexity {vq_out['perplexity']:.2f}")
+    expect("train_vqvae", counts, routes,
+           model_counts(0, n_enc + n_dec, LDM_VQ_STEPS, LDM_VQ_STEPS),
+           {"attention_plain_fwd": 2 * LDM_VQ_STEPS, "attention_plain_bwd": 2 * LDM_VQ_STEPS})
+    if not (math.isfinite(vq_out["loss"]) and os.path.exists(weights)):
+        raise AssertionError(f"train_vqvae: loss {vq_out['loss']}, weights {weights}")
+    total = counts
+
+    # shapley_pipeline: the first call encodes the stand-in (LDM_IMAGES / 32
+    # batches), every other call reads the cache.
+    members = LDM_FIT + LDM_TEST + 2
+    steps = (LDM_FIT + LDM_TEST + 1) * LDM_STEPS
+    r, p_wall, counts, routes, peak = timed(shapley_pipeline.main, [
+        "--dataset", "celeba", "--by_class", "--fit_dist", "shapley", "--removal_seed", "0",
+        "--num_fit_subsets", str(LDM_FIT), "--num_test_subsets", str(LDM_TEST),
+        "--test_seed_start", str(PIPE_TEST_SEED), "--training_steps", str(LDM_STEPS),
+        "--batch_size", str(LDM_BATCH), "--behavior", "eval_loss", "--chunk_size",
+        str(LDM_FIT), "--vqvae_weights", weights, "--device", "cuda", "--outdir", outdir])
+    enc_counts, enc_routes = encodes(LDM_IMAGES // 32)
+    sec, row = r["seconds"], r["row"]
+    resid = abs(r["attrs"].sum() - (r["v1"] - r["v0"]))
+    limit = EFFICIENCY_RTOL * max(1.0, abs(r["v1"] - r["v0"]))
+    cache = os.path.join(outdir, "celeba", "precomputed_emb", "vqvae_latents.npy")
+    log(f"[ldm] shapley_pipeline celeba by celebrity f32 on {card}: {row['num_fit_subsets']} "
+        f"fit and {row['num_test_subsets']} test subsets x {LDM_STEPS} steps at batch "
+        f"{LDM_BATCH}, two anchors; training {sec['train']:.3f} s ({steps} member-steps, "
+        f"{steps / sec['train']:.4f} member-steps/s, {sec['train'] / steps:.4f} s a "
+        f"member-step), encode {sec['encode']:.3f} s (one encode of {LDM_IMAGES} images, "
+        f"then the cache {np.load(cache).shape}), pipeline clock {r['train_seconds']:.3f} s, "
+        f"subset_passes_per_hour {row['subset_passes_per_hour']}, call {p_wall:.3f} s, peak "
+        f"{peak:.2f} GiB; v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual "
+        f"{resid:.3g} (limit {limit:.3g})")
+    expect("shapley_pipeline", counts, routes,
+           add_counts(model_counts(n_attn, n_gn, steps + members, steps), enc_counts),
+           enc_routes)
+    if not (r["attrs"].shape == (len(LDM_IDS),) and np.isfinite(r["attrs"]).all()
+            and resid <= limit and np.isfinite(r["y_fit"]).all()):
+        raise AssertionError(f"ldm pipeline: attributions {r['attrs']}")
+    total = add_counts(total, counts)
+
+    # generate_samples from the full anchor, decoded to 256x256 PNGs.
+    full = os.path.join(outdir, "celeba", "retrain", "models", "full")
+    pngs_dir = os.path.join(outdir, "samples")
+    g, g_wall, counts, routes, peak = timed(generate_samples.main, [
+        "--dataset", "celeba", "--load", full, "--sample_outdir", pngs_dir,
+        "--n_samples", str(LDM_SAMPLES), "--batch_size", str(LDM_SAMPLES),
+        "--num_inference_steps", str(LDM_SAMPLE_STEPS), "--vqvae_weights", weights,
+        "--device", "cuda"])
+    dec_counts, dec_routes = decodes(1)
+    expect("generate_samples", counts, routes,
+           add_counts(model_counts(n_attn, n_gn, LDM_SAMPLE_STEPS), dec_counts), dec_routes)
+    total = add_counts(total, counts)
+    pngs = sorted(n for n in os.listdir(pngs_dir) if n.endswith(".png"))
+    imgs = np.stack([np.asarray(Image.open(os.path.join(pngs_dir, n))) for n in pngs])
+    distinct = len({im.tobytes() for im in imgs})
+    vq_card = load_vqvae(vq, weights, device=dev)
+    latents = torch.randn(LDM_SAMPLES, 3, 64, 64, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(15))
+    with torch.no_grad():
+        decode_ms = cuda_ms(torch, lambda: vq_card.decode(latents), iters=3)
+    log(f"[ldm] generate_samples {LDM_SAMPLES} images x {LDM_SAMPLE_STEPS} DDIM steps + VQ "
+        f"decode f32 on {card}: {g['batch_seconds'][0]:.3f} s the batch (decode of "
+        f"{LDM_SAMPLES} latents {decode_ms / 1e3:.3f} s of it, timed apart), call "
+        f"{g_wall:.3f} s, peak {peak:.2f} GiB; {len(pngs)} PNGs {imgs.shape[1:]}, {distinct} "
+        f"distinct, mean {imgs.mean():.2f}, std {imgs.std():.2f}")
+    if not (len(pngs) == LDM_SAMPLES and imgs.shape[1:] == (256, 256, 3)
+            and distinct == LDM_SAMPLES):
+        raise AssertionError("generate_samples did not write distinct 256x256 RGB PNGs")
+
+    # Reference: sampling, decode and encode -> quantize, card against CPU.
+    ck = load_checkpoint(full)
+    models = {}
+    for device in ("cpu", dev):
+        m = UNet2D(spec)
+        m.load_state_dict(ck["ema_params"])
+        models[str(device)] = (m.to(device).eval(), load_vqvae(vq, weights, quiet=True,
+                                                                device=device))
+    noise = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (1, 3, 64, 64)).astype(np.float32))
+    got = {}
+    for device, (m, v) in models.items():
+        seen = []
+        decode = make_vq_decode_fn(vq, vqvae=v)
+
+        def capture(z, decode=decode, seen=seen):
+            seen.append(z.clone())
+            return decode(z)
+
+        imgs_ = make_sampler(m, cfg.scheduler, (1, 3, 64, 64), device=device,
+                             num_inference_steps=LDM_REF_STEPS, decode_fn=capture)(
+            init_noise=noise)
+        got[device] = (seen[0].cpu(), imgs_.cpu())
+    (z_cpu, img_cpu), (z_card, img_card) = got["cpu"], got[str(dev)]
+    v_cpu, v_card = models["cpu"][1], models[str(dev)][1]
+    with torch.no_grad():
+        codes_cpu = v_cpu.quantize(z_cpu)[1]
+        codes_card = v_card.quantize(z_card.to(dev))[1].cpu()
+        same_in = v_card.decode(z_cpu.to(dev)).cpu()
+        want_in = v_cpu.decode(z_cpu)
+        x = torch.from_numpy(create_dataset("celeba").images[:1]).permute(0, 3, 1, 2)
+        e_cpu, e_card = v_cpu.encode(x), v_card.encode(x.to(dev)).cpu()
+        q_cpu, q_card = v_cpu.quantize(e_cpu)[1], v_card.quantize(e_card.to(dev))[1].cpu()
+    lat_err = (z_card - z_cpu).abs().max().item()
+    agree = (codes_card == codes_cpu).float().mean().item()
+    img_err = (img_card - img_cpu).abs().max().item()
+    dec_err = ((same_in / 2 + 0.5).clamp(0, 1) - (want_in / 2 + 0.5).clamp(0, 1)).abs().max()
+    enc_err = (e_card - e_cpu).abs().max().item()
+    enc_agree = (q_card == q_cpu).float().mean().item()
+    log(f"[ldm] reference batch 1, card vs CPU (f32, TF32 off): {LDM_REF_STEPS} DDIM steps of "
+        f"the full anchor: latents max_abs_err={lat_err:.3g} (tol {LDM_LATENT_ATOL}); their "
+        f"codes agree at {agree:.6f} of 4096 positions ({int((1 - agree) * 4096)} differ); "
+        f"the sampler's decoded images max_abs_err={img_err:.3g} (tol {LDM_DECODE_ATOL} when "
+        f"the codes agree); the decoder on the same latents max_abs_err={dec_err.item():.3g} "
+        f"(tol {LDM_DECODE_ATOL}); encode of a stand-in image max_abs_err={enc_err:.3g} (tol "
+        f"{LDM_ENCODE_ATOL}), its codes agree at {enc_agree:.6f} "
+        f"({int(round((1 - enc_agree) * 4096))} of 4096 differ; at least "
+        f"{LDM_CODE_AGREEMENT} required)")
+    if not (lat_err <= LDM_LATENT_ATOL and dec_err <= LDM_DECODE_ATOL
+            and enc_err <= LDM_ENCODE_ATOL and enc_agree >= LDM_CODE_AGREEMENT
+            and agree >= LDM_CODE_AGREEMENT and (agree < 1 or img_err <= LDM_DECODE_ATOL)
+            and torch.isfinite(img_card).all()):
+        raise AssertionError("the latent path on the card disagrees with the CPU")
+    del models, vq_card, ck
+    torch.cuda.empty_cache()
+
+    # Diversity entropy with the full random BLIP tower (its seeded weights
+    # saved as an HF state dict, the --blip_weights route).
+    blip_path = os.path.join(outdir, "blip_random.pt")
+    torch.save(load_blip_vision(device="cpu").state_dict(), blip_path)
+    d, d_wall, counts, routes, peak = timed(calculate_global_scores_diversity.main, [
+        "--dataset", "celeba", "--load", full, "--n_samples", str(LDM_DIV_SAMPLES),
+        "--batch_size", str(LDM_DIV_SAMPLES), "--num_inference_steps", str(LDM_DIV_STEPS),
+        "--num_clusters", str(LDM_CLUSTERS), "--blip_weights", blip_path,
+        "--vqvae_weights", weights, "--outdir", outdir, "--device", "cuda"])
+    ds = d["seconds"]
+    log(f"[ldm] calculate_global_scores_diversity on the full anchor f32 on {card}: "
+        f"{LDM_DIV_SAMPLES} samples x {LDM_DIV_STEPS} DDIM steps + decode {ds['sampling']:.3f} "
+        f"s, BLIP tower (full, random) on {LDM_DIV_SAMPLES} + {4 * LDM_DIV_SAMPLES} reference "
+        f"images {ds['tower']:.3f} s, Ward clustering into {LDM_CLUSTERS} "
+        f"{ds['clustering']:.4f} s; call {d_wall:.3f} s, peak {peak:.2f} GiB; entropy "
+        f"{d['entropy']:.6f}, counts {[int(c) for c in d['cluster_count']]}")
+    expect("calculate_global_scores_diversity", counts, routes,
+           add_counts(model_counts(n_attn, n_gn, LDM_DIV_STEPS), dec_counts), dec_routes)
+    if not (math.isfinite(d["entropy"]) and len(d["cluster_count"]) == LDM_CLUSTERS
+            and sum(d["cluster_count"]) == LDM_DIV_SAMPLES):
+        raise AssertionError(f"diversity: {d['entropy']}, {d['cluster_count']}")
+    total = add_counts(total, counts)
+
+    # --remat --remat_policy convs (what the JAX package's CelebA runs use):
+    # one member on all the data, from the same seeds with and without it.
+    # The recompute reruns every block's GroupNorms (all but conv_norm_out)
+    # and attention forward; the 3x3 convolutions' outputs are kept.
+    runs = {}
+    for tag, extra in (("no remat", []), ("remat convs", ["--remat", "--remat_policy", "convs"])):
+        run_dir = os.path.join(outdir, tag.replace(" ", "_"))
+        os.makedirs(os.path.join(run_dir, "celeba", "precomputed_emb"))
+        shutil.copy(cache, os.path.join(run_dir, "celeba", "precomputed_emb"))
+        t, t_wall, counts, routes, peak = timed(train_ensemble.main, [
+            "--dataset", "celeba", "--removal_dist", "full", "--num_seeds", "1",
+            "--training_steps", str(LDM_STEPS), "--batch_size", str(LDM_BATCH),
+            "--vqvae_weights", weights, "--outdir", run_dir, "--device", "cuda", *extra])
+        remat = bool(extra)
+        want = model_counts(n_attn, n_gn, LDM_STEPS, LDM_STEPS)
+        if remat:
+            want = add_counts(want, model_counts(n_attn, n_gn - 1, LDM_STEPS))
+        log(f"[ldm] train_ensemble celeba 1 member x {LDM_STEPS} steps at batch {LDM_BATCH}, "
+            f"{tag}: {t['train_seconds'] / LDM_STEPS:.4f} s a step (the first with warm-up), "
+            f"peak {peak:.2f} GiB, call {t_wall:.3f} s")
+        expect(f"train_ensemble {tag}", counts, routes, want,
+               {"attention_plain_fwd": 0, "attention_plain_bwd": 0})
+        runs[tag] = load_checkpoint(t["model_dirs"][0])["params"]
+        total = add_counts(total, counts)
+    a, b = runs.values()
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    log(f"[ldm] remat convs against no remat: weights after {LDM_STEPS} steps bitwise "
+        f"equal={same}")
+    if not same:
+        raise AssertionError("--remat_policy convs trained other weights than no remat")
+    return total
 
 
 def check_jl_projection(torch, ops, dev):
@@ -1341,6 +1794,7 @@ def run(torch, tmp: str) -> int:
     # The port reads its dataset root once, on import: the stand-in goes first.
     data_root = os.path.join(tmp, "datasets")
     write_cifar_standin(data_root, CIFAR_TRAIN_IMAGES)
+    write_celeba_standin(data_root)
     os.environ["GADM_DATASET_DIR"] = data_root
     data_s = time.perf_counter() - t_start
 
@@ -1365,7 +1819,8 @@ def run(torch, tmp: str) -> int:
     libs = _build.build()
     log(f"[build] {len(libs)} libraries from csrc/ in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(os.path.basename(p) for p in libs.values())
-        + f"; CIFAR-10 stand-in ({CIFAR_TRAIN_IMAGES} images) written in {data_s:.1f} s")
+        + f"; CIFAR-10 ({CIFAR_TRAIN_IMAGES} images) and CelebA-HQ ({LDM_IMAGES} images) "
+        f"stand-ins written in {data_s:.1f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1455,11 +1910,14 @@ def run(torch, tmp: str) -> int:
     pipe_counts = check_pipeline(torch, np, ops, tmp, card)
     check_towers(torch, np, dev, card)
     score_counts = check_scores(torch, np, ops, tmp, card)
+    t0 = time.perf_counter()
+    ldm_counts = check_ldm(torch, np, ops, tmp, card, dev)
+    log(f"[ldm] phase {time.perf_counter() - t0:.1f} s")
 
-    # launches: the five main paths, sampling, training, TRAK, the estimation
-    # loop and the sample behaviors.
-    launches = {k: sample_counts[k] + train_counts[k] + trak_counts[k] + pipe_counts[k]
-                + score_counts[k] for k in trak_counts}
+    # launches: the six main paths, sampling, training, TRAK, the estimation
+    # loop, the sample behaviors and the latent-diffusion workload.
+    launches = add_counts(sample_counts, train_counts, trak_counts, pipe_counts, score_counts,
+                          ldm_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

@@ -1,8 +1,14 @@
-"""Sample-based global behaviors: FID, IS, precision/recall and their towers.
+"""Sample-based global behaviors: FID, IS, precision/recall, diversity
+entropy and their towers (the diversity's BLIP tower is
+``models.blip_vision``)."""
 
-``diversity`` (with the BLIP vision tower) is not ported yet.
-"""
-
+from .diversity import (  # noqa: F401
+    assign_to_clusters,
+    calculate_diversity_score,
+    diversity_entropy,
+    embedding_dist_to_mean,
+    ward_cluster,
+)
 from .fid import (  # noqa: F401
     calculate_fid_from_features,
     compute_feature_stats,

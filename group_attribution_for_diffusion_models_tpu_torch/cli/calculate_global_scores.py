@@ -13,7 +13,8 @@ averages FID over the class subdirectories of ``--sample_dir``.
 Without weights files the towers start from seeded random inits: the scores
 are self-consistent but not comparable to published ones. Runs on CUDA
 unless ``--device cpu`` is given; on CUDA, TF32 is off, so float32 means
-float32. Latent (VQ-VAE) workloads raise until the LDM slice.
+float32. Latent workloads sample latents and decode them with the VQ-VAE
+(``--vqvae_weights``, else the seeded random tower).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from .common import (
     load_sample_dir,
     provenance_row,
     reference_images,
+    vq_decode_fn_for,
 )
 from .generate_samples import batch_generator
 
@@ -112,7 +114,8 @@ def _sample_checkpoint(args, cfg, device) -> tuple:
     batch = min(args.batch_size, args.n_samples)
     sampler = make_sampler(model, cfg.scheduler,
                            (batch, spec.in_channels, spec.sample_size, spec.sample_size),
-                           device=device, num_inference_steps=args.num_inference_steps)
+                           device=device, num_inference_steps=args.num_inference_steps,
+                           decode_fn=vq_decode_fn_for(cfg, args.vqvae_weights, device=device))
     chunks = [sampler(generator=batch_generator(args.seed, b, device)).cpu()
               for b in range(-(-args.n_samples // batch))]
     samples = torch.cat(chunks)[:args.n_samples].permute(0, 2, 3, 1).numpy()
@@ -150,8 +153,6 @@ def main(argv=None):
         samples = load_sample_dir(args.sample_dir)
         remaining_idx, removed_idx = [], []
     elif args.load:
-        if cfg.vqvae is not None:
-            raise NotImplementedError("latent (VQ-VAE) workloads are not ported yet")
         samples, remaining_idx, removed_idx = _sample_checkpoint(args, cfg, device)
     else:
         raise SystemExit("need --load or --sample_dir")

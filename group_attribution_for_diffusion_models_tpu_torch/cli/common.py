@@ -152,6 +152,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="index for loo/aoi removal")
     parser.add_argument("--by_class", action="store_true", default=False)
     parser.add_argument("--num_inference_steps", type=int, default=100)
+    parser.add_argument("--vqvae_weights", type=str, default=None,
+                        help="VQ-VAE params (.npy, the JAX tree) for latent workloads; "
+                             "default: the seeded random tower")
     parser.add_argument("--tracker", type=str, default="none", choices=["none", "jsonl"],
                         help="training-scalar tracker (logs under <outdir>/logs)")
 
@@ -165,6 +168,16 @@ def tracker_for(args, run_name: str):
                 if isinstance(v, (int, float, str, bool, type(None)))},
         logdir=os.path.join(args.outdir, "logs"),
     )
+
+
+def vq_decode_fn_for(cfg: WorkloadConfig, vqvae_weights: Optional[str] = None, device="cuda"):
+    """decode_fn for latent workloads (None for pixel-space ones): the frozen
+    VQ decoder the samplers run after the denoise loop, on `device`."""
+    if cfg.vqvae is None:
+        return None
+    from ..models.vqvae import make_vq_decode_fn
+
+    return make_vq_decode_fn(cfg.vqvae, vqvae_weights, device=device)
 
 
 def provenance_row(args, **extra) -> Dict:

@@ -6,6 +6,11 @@ recording finished batches so an interrupted run resumes where it stopped.
 Each batch draws its initial noise from a generator seeded from
 (seed, batch index), so a resumed batch is the batch it would have been.
 
+Latent workloads (``celeba``, ``synthetic_*_ldm``) sample U-Net latents and
+decode them with the VQ-VAE (``--vqvae_weights``, else the seeded random
+tower) after the denoise loop, so their PNGs are the VQ-VAE's image size
+(256x256 for CelebA-HQ).
+
 Runs on CUDA unless ``--device cpu`` is given. ``--dtype fp32`` turns off
 TF32 in cuDNN convolutions and matmuls, so float32 means float32.
 """
@@ -24,7 +29,7 @@ from ..diffusion.sampling import make_sampler
 from ..models.unet2d import UNet2D
 from ..utils.ckpt import load_checkpoint
 from ..utils.device import resolve_device
-from .common import add_common_args, checkpoint_spec, config_for
+from .common import add_common_args, checkpoint_spec, config_for, vq_decode_fn_for
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -65,8 +70,6 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         print("fp32: TF32 off for cuDNN convolutions and CUDA matmuls")
     cfg = config_for(args.dataset)
-    if cfg.vqvae is not None:
-        raise NotImplementedError("latent (VQ-VAE) workloads are not ported yet")
     spec = checkpoint_spec(args.load, cfg.unet)
     state = load_checkpoint(args.load)
     model = UNet2D(spec)
@@ -86,6 +89,7 @@ def main(argv=None):
     sampler = make_sampler(
         model, cfg.scheduler, shape, device=device,
         num_inference_steps=args.num_inference_steps,
+        decode_fn=vq_decode_fn_for(cfg, args.vqvae_weights, device=device),
     )
 
     n_batches = -(-args.n_samples // batch)

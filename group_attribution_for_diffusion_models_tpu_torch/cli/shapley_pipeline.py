@@ -29,7 +29,9 @@ Where the port follows the intended behavior and not the JAX package:
 * cached reference stats are used only when they carry the tag of the
   tower in use (``train_ensemble --ref_stats``).
 
-Not ported yet: latent (VQ-VAE) workloads (``--vqvae_weights``). Runs on
+Latent workloads (``--dataset celeba``, ``synthetic_*_ldm``) train on the
+VQ-VAE's latents, ``--vqvae_weights`` passed on to every ``train_ensemble``
+call (the first call encodes the dataset, the others read its cache). Runs on
 CUDA unless ``--device cpu`` is given.
 
 Usage (smoke, CPU):
@@ -125,6 +127,8 @@ def _ensemble_argv(args, db, method, steps):
             argv += ["--inception_weights", args.inception_weights]
     if args.batch_size:
         argv += ["--batch_size", str(args.batch_size)]
+    if args.vqvae_weights:
+        argv += ["--vqvae_weights", args.vqvae_weights]
     return argv
 
 
@@ -274,8 +278,8 @@ def main(argv=None):
     """Run the CLI. Returns the fit stage's dict (attrs, the fit and test
     (x, y), v1, v0, LDS) with the summary row (`row`), the DB path, the
     training seconds (every train_ensemble call, set-up, sampling and scoring
-    included) and `seconds`: that clock's training, sampling, tower and FID
-    math seconds summed over the calls."""
+    included) and `seconds`: that clock's training, sampling, tower, FID math
+    and latent-encode (or cache-read) seconds summed over the calls."""
     args = parse_args(argv)
     resolve_device(args.device)
     db = args.db or os.path.join(args.outdir, f"{args.dataset}_pipeline_db.jsonl")
@@ -322,7 +326,7 @@ def main(argv=None):
     calls += [_anchor(args, db, 0), _anchor(args, db, fit_steps)]
     train_time = time.time() - t0
     seconds = {key: sum(c[f"{key}_seconds"] for c in calls)
-               for key in ("train", "sample", "tower", "fid")}
+               for key in ("train", "sample", "tower", "fid", "encode")}
 
     n_units, labels = attribution_units(args.dataset, args.by_class)
     out = fit_stage(db, args.dataset, args.behavior, args.fit_dist, args.method,

@@ -13,13 +13,20 @@ written to the rows as ``fid_value`` and ``is``. Members whose final
 checkpoint (or, under --no-save_ckpts, whose DB row) already exists are
 skipped.
 
+Latent workloads (``celeba``, ``synthetic_*_ldm``) train in the frozen
+VQ-VAE's latent space, as the JAX CLI does: the VQ-VAE (``--vqvae_weights``,
+else the seeded random tower) encodes the dataset once, cached at
+``<outdir>/<dataset>/precomputed_emb/vqvae_latents.npy`` in the JAX layout
+(N, h, w, c), so either package reads the other's cache; the members train
+on those float32 latents times ``scaling_factor``, the eval-loss probe lives
+in latent space, and sampling runs the VQ decoder after the denoise loop.
+
 Runs on CUDA unless ``--device cpu`` is given; on CUDA, float32 means
 float32 (TF32 off in cuDNN convolutions and CUDA matmuls) and cuDNN runs
 deterministic algorithms, so two runs of a step give bit-identical
 gradients (the attention and GroupNorm kernels use no atomics). Not ported yet:
-the device mesh (``--mesh_ensemble``, ``--mesh_data``), latent (VQ-VAE)
-workloads and ``--remat_policy``. ``--bf16`` is the JAX CLI's: float32
-parameters and optimizer state, bf16 compute.
+the device mesh (``--mesh_ensemble``, ``--mesh_data``). ``--bf16`` is the JAX
+CLI's: float32 parameters and optimizer state, bf16 compute.
 
 Usage (smoke, CPU):
     python -m group_attribution_for_diffusion_models_tpu_torch.cli.train_ensemble \\
@@ -50,7 +57,8 @@ from ..config import constants
 from ..data import create_dataset, sample_removal
 from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import add_noise, make_schedule
-from ..models.unet2d import UNet2D, build_unet
+from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet
+from ..models.vqvae import load_vqvae, make_vq_decode_fn, precompute_latents
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
 from ..training.state import TrainState, make_optimizer
 from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint
@@ -112,6 +120,10 @@ def parse_args(argv=None):
                         help="bf16 compute with float32 parameters and optimizer state")
     parser.add_argument("--remat", action="store_true", default=False,
                         help="recompute each resnet/attention block in the backward")
+    parser.add_argument("--remat_policy", default=None, choices=list(REMAT_POLICIES),
+                        help="selective remat: what each block saves for backward "
+                             "(full=nothing, convs=3x3 conv outputs, convs_dots=+dense "
+                             "outputs)")
     parser.add_argument(
         "--removal_masks", type=str, default=None,
         help=".npy of explicit keep-masks, one row per removal seed (row "
@@ -213,7 +225,8 @@ def main(argv=None):
     without --n_samples), with --score the per-member FID (None without
     fid) and IS and the seconds of the tower's feature passes (the
     reference set's included) and of the FID math, the DB path and the
-    member model dirs."""
+    member model dirs; for latent workloads the seconds of the dataset's
+    encode (or of reading its cache) and whether the cache was read."""
     args = parse_args(argv)
     if args.score != "none" and args.n_samples <= 0:
         raise SystemExit(f"--score {args.score} needs --n_samples > 0")
@@ -225,8 +238,6 @@ def main(argv=None):
         # identical subsets must stay bit-identical under common noise.
         torch.backends.cudnn.deterministic = True
     cfg = config_for(args.dataset)
-    if cfg.vqvae is not None:
-        raise NotImplementedError("latent (VQ-VAE) workloads are not ported yet")
     # NOT `or`: --training_steps 0 means the untrained null model (the
     # pipeline's y_v0 anchor), not "use the config budget".
     training_steps = (
@@ -281,6 +292,7 @@ def main(argv=None):
                "sample_seconds": 0.0, "losses": [], "eval_losses": None,
                "samples": None, "fid_values": None, "is_values": None,
                "tower_seconds": 0.0, "fid_seconds": 0.0,
+               "encode_seconds": 0.0, "latents_cached": None,
                "db": db, "model_dirs": [member_dir(s) for s in seeds]}
     if skipped:
         print(f"skipping {len(skipped)} already-complete seeds: {skipped}")
@@ -305,7 +317,22 @@ def main(argv=None):
         opt.name, lr=args.lr or opt.lr, weight_decay=opt.weight_decay,
         grad_clip_norm=opt.grad_clip_norm, maximize=args.method in ("ga", "ga_u"),
     )
-    train_data = ((dataset.images + 1.0) * 127.5).round().astype(np.uint8)
+    decode_fn = None
+    if cfg.vqvae is not None:
+        # One encode of the whole dataset, shared by every member and cached
+        # for every later call on this outdir.
+        t0 = time.perf_counter()
+        vqvae = load_vqvae(cfg.vqvae, args.vqvae_weights, device=device)
+        cache = os.path.join(args.outdir, args.dataset, "precomputed_emb", "vqvae_latents.npy")
+        cached = os.path.exists(cache)
+        train_data = (precompute_latents(vqvae, dataset.images, batch_size=32, cache_path=cache)
+                      * cfg.vqvae.scaling_factor).astype(np.float32)
+        decode_fn = make_vq_decode_fn(cfg.vqvae, vqvae=vqvae)
+        summary.update(encode_seconds=time.perf_counter() - t0, latents_cached=cached)
+        print(f"latents {train_data.shape} {'read from' if cached else 'encoded to'} {cache} "
+              f"in {summary['encode_seconds']:.2f}s")
+    else:
+        train_data = ((dataset.images + 1.0) * 127.5).round().astype(np.uint8)
     trainer = EnsembleTrainer(
         tx=tx,
         schedule=make_schedule(cfg.scheduler, device),
@@ -321,7 +348,8 @@ def main(argv=None):
     compute_dtype = torch.bfloat16 if args.bf16 else None
 
     def init_fn(seed: int) -> UNet2D:
-        return build_unet(spec, seed, remat=args.remat, compute_dtype=compute_dtype)
+        return build_unet(spec, seed, remat=args.remat, compute_dtype=compute_dtype,
+                          remat_policy=args.remat_policy)
 
     params = None
     if args.load:
@@ -357,9 +385,11 @@ def main(argv=None):
     eval_losses = None
     if args.eval_loss:
         # The probe, its timesteps and its noise come from a CPU generator,
-        # so they are the same on every device and for every member.
+        # so they are the same on every device and for every member. The
+        # probe lives in the training space (latents for latent workloads).
         probe_n = min(args.eval_probe_size, len(dataset))
-        probe = torch.from_numpy(dataset.images[:probe_n]).permute(0, 3, 1, 2).contiguous()
+        space = train_data if cfg.vqvae is not None else dataset.images
+        probe = torch.from_numpy(space[:probe_n]).permute(0, 3, 1, 2).contiguous()
         gen = torch.Generator().manual_seed(EVAL_PROBE_SEED)
         t_fixed = torch.randint(args.eval_t_min,
                                 args.eval_t_max or cfg.scheduler.num_train_timesteps,
@@ -385,7 +415,8 @@ def main(argv=None):
         for m, state in enumerate(states):
             sampler = make_sampler(_ema_model(scratch, state), cfg.scheduler, shape,
                                    device=device,
-                                   num_inference_steps=args.num_inference_steps)
+                                   num_inference_steps=args.num_inference_steps,
+                                   decode_fn=decode_fn)
             gen = torch.Generator(device=device).manual_seed(derived_seed(args.opt_seed, m))
             samples.append(sampler(generator=gen))
         samples = torch.stack(samples).cpu().numpy()

@@ -1,21 +1,23 @@
-"""Numpy-native datasets, as far as the trainer's slice reads them.
+"""Numpy-native datasets, as far as the ported slices read them.
 
-Port of the JAX package's ``data/datasets.py`` for CIFAR-10 and the
-deterministic ``synthetic*`` datasets (numpy only, so the same arrays come
-out of both packages). Every dataset is an `ArrayDataset`: images **NHWC
-float32 in [-1, 1]** plus integer labels. Raw archives are read from
-``constants.DATASET_DIR`` in their standard binary formats. The other
-datasets of the JAX registry (CIFAR-100 variants, MNIST, CelebA-HQ, image
-folders) come with their slices.
+Port of the JAX package's ``data/datasets.py`` for CIFAR-10, CelebA-HQ and
+the deterministic ``synthetic*`` datasets (numpy only, so the same arrays
+come out of both packages). Every dataset is an `ArrayDataset`: images
+**NHWC float32 in [-1, 1]** plus integer labels. Raw archives are read from
+``constants.DATASET_DIR`` in their standard binary formats; CelebA-HQ is a
+directory of images with a ``labels.csv`` group table. The other datasets of
+the JAX registry (CIFAR-100 variants, MNIST, image folders) come with their
+slices.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import os
 import pickle
 import re
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -25,11 +27,13 @@ from ..config import constants
 @dataclasses.dataclass
 class ArrayDataset:
     """Images (N, H, W, C) float32 in [-1, 1] + integer group labels (N,).
-    The JAX class's per-item ``names``, ``subset`` and ``num_classes`` come
-    with the group-table workloads that read them."""
+    ``names`` optionally carries per-item string ids (the image files of a
+    group table). The JAX class's ``subset`` and ``num_classes`` come with
+    the workloads that read them."""
 
     images: np.ndarray
     labels: np.ndarray
+    names: Optional[List[str]] = None
 
     def __post_init__(self):
         if self.images.ndim != 4 or len(self.images) != len(self.labels):
@@ -57,6 +61,49 @@ def _load_cifar10_raw(root: str, train: bool) -> Tuple[np.ndarray, np.ndarray]:
         ys.extend(entry.get("labels", entry.get("fine_labels")))
     x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
     return x, np.asarray(ys, dtype=np.int64)
+
+
+def category_codes(values: List[str]) -> np.ndarray:
+    """pandas' ``read_csv(...)[col].astype("category").cat.codes`` of a CSV
+    column read as text: the rank of each value among the sorted distinct
+    values, -1 for an empty cell. As pandas infers the column's type, a
+    column whose cells all parse as integers (or as numbers) sorts
+    numerically, so id 2 comes before id 10; any other column sorts as text."""
+    present = [v for v in values if v != ""]
+    for parse in (int, float):
+        try:
+            keys = {v: parse(v) for v in present}
+            break
+        except ValueError:
+            continue
+    else:
+        keys = {v: v for v in present}
+    order = {k: i for i, k in enumerate(sorted(set(keys.values())))}
+    return np.asarray([order[keys[v]] if v != "" else -1 for v in values], dtype=np.int64)
+
+
+def _load_image_dir(root: str, size: int, labels_csv: Optional[str] = None) -> ArrayDataset:
+    """A directory of images, optionally with a ``labels.csv`` group table
+    whose first two columns are (filename, group); each image decoded to RGB
+    and resized to `size` (bilinear) with PIL. Without a table: the image
+    files in name order, group 0."""
+    from PIL import Image
+
+    if labels_csv is not None:
+        with open(labels_csv, newline="") as f:
+            rows = list(csv.reader(f))[1:]
+        files = [r[0] for r in rows]
+        groups = category_codes([r[1] for r in rows])
+    else:
+        files = sorted(f for f in os.listdir(root)
+                       if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
+        groups = np.zeros(len(files), dtype=np.int64)
+    imgs = np.empty((len(files), size, size, 3), dtype=np.uint8)
+    for i, name in enumerate(files):
+        with Image.open(os.path.join(root, name)) as im:
+            imgs[i] = np.asarray(im.convert("RGB").resize((size, size), Image.BILINEAR),
+                                 dtype=np.uint8)
+    return ArrayDataset(_normalize(imgs), groups, names=list(files))
 
 
 def make_synthetic(
@@ -123,7 +170,8 @@ def create_dataset(
     dataset_dir: Optional[str] = None,
 ) -> ArrayDataset:
     """Build a dataset by name: ``synthetic[_<n>x<s>][_c<k>][_mix|_tex|_tpl|
-    _sizes]`` or ``cifar`` (reference create_dataset src/datasets.py:398-513)."""
+    _sizes]``, ``cifar`` or ``celeba`` (``<root>/celeba_hq/{train,test}/`` with
+    its ``labels.csv``; reference create_dataset src/datasets.py:398-513)."""
     root = dataset_dir or constants.DATASET_DIR
 
     if dataset_name.startswith("synthetic"):
@@ -154,7 +202,13 @@ def create_dataset(
         x, y = _load_cifar10_raw(root, train)
         return ArrayDataset(_normalize(x), y)
 
+    if dataset_name == "celeba":
+        img_dir = os.path.join(root, "celeba_hq", "train" if train else "test")
+        labels_csv = os.path.join(img_dir, "labels.csv")
+        return _load_image_dir(img_dir, 256,
+                               labels_csv if os.path.exists(labels_csv) else None)
+
     raise ValueError(
-        f"dataset_name={dataset_name!r}: the port reads 'cifar' and 'synthetic*' "
-        "so far"
+        f"dataset_name={dataset_name!r}: the port reads 'cifar', 'celeba' and "
+        "'synthetic*' so far"
     )

@@ -4,7 +4,9 @@ Port of the JAX package's ``diffusion/sampling.py``, as far as its ported
 callers (``cli/generate_samples.py``, ``cli/grad_features.py``) use it:
 deterministic DDIM (eta=0) from an initial noise, post-processed to float
 images in [0, 1], NCHW, and `sample_with_trajectory`, which also returns
-the latents each step starts from (Journey TRAK). The JAX package scans the
+the latents each step starts from (Journey TRAK). For latent workloads a
+`decode_fn` (the VQ decoder, latents -> images in [-1, 1]) runs after the
+denoise loop, on the same device, before the post-processing. The JAX package scans the
 denoising loop inside one jit; here it is a Python loop of eager calls under
 ``torch.inference_mode``. The initial noise is either passed in
 (`init_noise`, which lets tests feed both packages the same draw) or drawn
@@ -31,9 +33,11 @@ def _ddim(
     init_noise: Optional[torch.Tensor],
     num_inference_steps: int,
     trajectory: Optional[List[torch.Tensor]] = None,
+    decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(images in [0, 1], timesteps) of a DDIM run with eta=0; appends the
-    latent each step starts from to `trajectory` when given one."""
+    """(images in [0, 1], timesteps) of a DDIM run with eta=0, decoded by
+    `decode_fn` when given; appends the latent each step starts from to
+    `trajectory` when given one."""
     if init_noise is None and generator is None:
         raise ValueError("sampling needs init_noise or a generator to draw it")
     ts = inference_timesteps(
@@ -57,6 +61,8 @@ def _ddim(
                 schedule, spec, eps, t_b,
                 torch.full((b,), t_prev, dtype=torch.long, device=device), x,
             )
+        if decode_fn is not None:
+            x = decode_fn(x)
         images = torch.clamp(x / 2.0 + 0.5, 0.0, 1.0)
     return images, torch.from_numpy(ts).to(device)
 
@@ -71,12 +77,14 @@ def sample_loop(
     generator: Optional[torch.Generator] = None,
     init_noise: Optional[torch.Tensor] = None,
     num_inference_steps: int = 100,
+    decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Generate a batch of images of `shape` (B, C, H, W) with DDIM, eta=0.
-    `model(x, t)` predicts the noise. Only the initial noise is random, so
-    the result is a function of it."""
+    `model(x, t)` predicts the noise; `decode_fn` maps the final latents of
+    `shape` to images in [-1, 1] (the LDM path). Only the initial noise is
+    random, so the result is a function of it."""
     images, _ = _ddim(model, schedule, spec, shape, device, generator, init_noise,
-                      num_inference_steps)
+                      num_inference_steps, decode_fn=decode_fn)
     return images
 
 
@@ -90,6 +98,7 @@ def sample_with_trajectory(
     generator: Optional[torch.Generator] = None,
     init_noise: Optional[torch.Tensor] = None,
     num_inference_steps: int = 100,
+    decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """DDIM (eta=0) as `sample_loop`, returning (images in [0, 1], the
     trajectory (T, B, C, H, W) of the latents x_t each step starts from, the
@@ -98,7 +107,7 @@ def sample_with_trajectory(
     mode, so autograd may save it (the journey features' backward does)."""
     trajectory: List[torch.Tensor] = []
     images, ts = _ddim(model, schedule, spec, shape, device, generator, init_noise,
-                       num_inference_steps, trajectory)
+                       num_inference_steps, trajectory, decode_fn)
     return images, torch.stack(trajectory), ts
 
 
@@ -109,8 +118,10 @@ def make_sampler(
     *,
     device,
     num_inference_steps: int = 100,
+    decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
-    """Sampler factory: (generator=None, init_noise=None) -> images.
+    """Sampler factory: (generator=None, init_noise=None) -> images, decoded
+    by `decode_fn` for latent workloads.
 
     The schedule is built once, from the spec, on `device` (the reference
     re-instantiates a fresh DDIMScheduler for inference).
@@ -122,6 +133,7 @@ def make_sampler(
         return sample_loop(
             model, schedule, spec, shape, device=device, generator=generator,
             init_noise=init_noise, num_inference_steps=num_inference_steps,
+            decode_fn=decode_fn,
         )
 
     return sampler

@@ -1,4 +1,5 @@
-"""Weight bridge between the JAX package's UNet2D param tree and the port.
+"""Weight bridges between the JAX package's param trees and the port: the
+UNet2D and, at the end of the file, the VQ-VAE.
 
 The port's UNet2D state dict uses the diffusers v0.24 UNet2DModel keys, so
 these are the port's own copies of the JAX package's
@@ -138,4 +139,113 @@ def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         for sub, leaves in module.items():
             for leaf, v in leaves.items():
                 emit(_torch_module(name, sub), leaf, v)
+    return out
+
+
+# --- VQ-VAE (diffusers VQModel) ----------------------------------------------
+#
+#   diffusers / port                             JAX VQVAE
+#   {encoder,decoder}.conv_in / conv_out         {encoder,decoder}/conv_in / conv_out
+#   {encoder,decoder}.conv_norm_out              {encoder,decoder}/norm_out
+#   encoder.down_blocks.I.resnets.J.*            encoder/down_I_res_J/*
+#   encoder.down_blocks.I.downsamplers.0.conv    encoder/down_I_downsample
+#   decoder.up_blocks.I.resnets.J.*              decoder/up_I_res_J/*
+#   decoder.up_blocks.I.upsamplers.0.conv        decoder/up_I_upsample
+#   {encoder,decoder}.mid_block.resnets.{0,1}.*  {encoder,decoder}/mid_res_{0,1}/*
+#   {encoder,decoder}.mid_block.attentions.0.*   {encoder,decoder}/mid_attn/*
+#   quant_conv / post_quant_conv                 quant_conv / post_quant_conv
+#   quantize.embedding.weight                    codebook
+
+
+def vqvae_params_to_jax(state_dict: Dict[str, Any]) -> Dict:
+    """Port VQVAE state dict -> JAX VQVAE param tree of numpy (the port's copy
+    of the JAX ``convert_vqvae_state_dict``, raising on an unknown key)."""
+    params: Dict[str, Any] = {}
+
+    def put(path: List[str], leaf: str, v):
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node.setdefault(path[-1], {})[leaf] = v
+
+    for key, value in state_dict.items():
+        v = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
+        if key == "quantize.embedding.weight":
+            params["codebook"] = v
+            continue
+        parts = key.split(".")
+        torch_leaf, body = parts[-1], parts[:-1]
+        if torch_leaf not in ("weight", "bias"):
+            raise ValueError(f"unexpected state-dict key {key!r}")
+        if body[0] in ("quant_conv", "post_quant_conv") and len(body) == 1:
+            leaf, tv = _jax_leaf(v, torch_leaf)
+            params.setdefault(body[0], {})[leaf] = tv
+            continue
+        if body[0] not in ("encoder", "decoder") or len(body) < 2:
+            raise ValueError(f"unexpected state-dict key {key!r}")
+        tower, body = body[0], body[1:]
+        if body in (["conv_in"], ["conv_out"]):
+            put([tower, body[0]], *_jax_leaf(v, torch_leaf))
+        elif body == ["conv_norm_out"]:
+            put([tower, "norm_out"], *_jax_leaf(v, torch_leaf))
+        elif body[0] == "mid_block" and body[1] in ("resnets", "attentions"):
+            prefix = f"mid_res_{body[2]}" if body[1] == "resnets" else "mid_attn"
+            sub = _ATTN_ALIASES.get(".".join(body[3:]), ".".join(body[3:]))
+            if sub not in _SUBMODULES:
+                raise ValueError(f"unexpected state-dict key {key!r}")
+            put([tower, prefix, sub], *_jax_leaf(v, torch_leaf))
+        elif body[0] in ("down_blocks", "up_blocks"):
+            side = "down" if body[0] == "down_blocks" else "up"
+            i, kind, rest = body[1], body[2], body[3:]
+            if kind == "resnets" and ".".join(rest[1:]) in _SUBMODULES:
+                put([tower, f"{side}_{i}_res_{rest[0]}", ".".join(rest[1:])],
+                    *_jax_leaf(v, torch_leaf))
+            elif kind == f"{side}samplers" and rest == ["0", "conv"]:
+                # The JAX towers attach the resampling conv's kernel directly.
+                put([tower, f"{side}_{i}_{side}sample"], *_jax_leaf(v, torch_leaf))
+            else:
+                raise ValueError(f"unexpected state-dict key {key!r}")
+        else:
+            raise ValueError(f"unexpected state-dict key {key!r}")
+    return params
+
+
+def _vq_torch_module(tower: str, name: str, sub: str) -> str:
+    if name == "norm_out":
+        return f"{tower}.conv_norm_out"
+    if name in ("conv_in", "conv_out"):
+        return f"{tower}.{name}"
+    if name.endswith(("_downsample", "_upsample")):
+        return f"{tower}.{_torch_module(name, 'conv')}"
+    return f"{tower}.{_torch_module(name, sub)}"
+
+
+def vqvae_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX VQVAE param tree (numpy or JAX arrays) -> port state dict (the
+    port's copy of the JAX ``export_vqvae_state_dict``)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def emit(torch_name: str, leaf: str, v):
+        v = np.asarray(v, dtype=np.float32)
+        if leaf == "kernel":
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+        suffix = "bias" if leaf == "bias" else "weight"
+        out[f"{torch_name}.{suffix}"] = torch.from_numpy(np.array(v, order="C"))
+
+    for top, module in params.items():
+        if top == "codebook":
+            out["quantize.embedding.weight"] = torch.from_numpy(
+                np.array(module, dtype=np.float32))
+        elif top in ("quant_conv", "post_quant_conv"):
+            for leaf, v in module.items():
+                emit(top, leaf, v)
+        else:
+            for name, sub_tree in module.items():
+                if any(k in sub_tree for k in ("kernel", "scale", "bias")):
+                    for leaf, v in sub_tree.items():  # conv_in, norm_out, resampling convs
+                        emit(_vq_torch_module(top, name, ""), leaf, v)
+                    continue
+                for sub, leaves in sub_tree.items():
+                    for leaf, v in leaves.items():
+                        emit(_vq_torch_module(top, name, sub), leaf, v)
     return out

@@ -106,17 +106,21 @@ class ResnetBlock(nn.Module):
     """GN-SiLU-Conv resnet block with additive time conditioning.
 
     `hidden_channels` (conv1 out / conv2 in) is separate from `out_channels`
-    so structurally pruned specs keep the block interface.
+    so structurally pruned specs keep the block interface. With
+    `temb_channels=None` the block has no ``time_emb_proj`` (the VQ-VAE's
+    blocks, which the JAX module runs with ``temb=None``).
     """
 
-    def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
+    def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int],
                  hidden_channels: Optional[int] = None, groups: int = 32,
                  eps: float = 1e-6, dropout: float = 0.0):
         super().__init__()
         hidden = hidden_channels or out_channels
         self.norm1 = GroupNormSiLU(in_channels, groups, eps)
         self.conv1 = nn.Conv2d(in_channels, hidden, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, hidden)
+        self.time_emb_proj = (
+            nn.Linear(temb_channels, hidden) if temb_channels is not None else None
+        )
         self.norm2 = GroupNormSiLU(hidden, groups, eps)
         self.dropout = nn.Dropout(dropout)
         self.conv2 = nn.Conv2d(hidden, out_channels, 3, padding=1)

@@ -4,7 +4,12 @@ Port of the JAX package's ``models/unet2d.py`` for the unconditional
 UNet2DModel configs (CIFAR, MNIST and the synthetic specs); cross-attention
 blocks come with a later slice. ``remat=True`` recomputes each resnet and
 attention block in the backward (``torch.utils.checkpoint``), as the JAX
-``remat=True`` with no policy does; its selective policies wait.
+``remat=True`` does; ``remat_policy`` is the JAX model's selective policy,
+built on ``create_selective_checkpoint_contexts``: ``full`` (or None) saves
+nothing a block computes, ``convs`` saves the outputs of its 3x3
+convolutions (the JAX "remat_conv" tags), ``convs_dots`` also those of every
+dense product (the JAX ``dots_with_no_batch_dims_saveable``: ``mm`` and
+``addmm``, not the batched attention products).
 ``compute_dtype=torch.bfloat16`` is the JAX model's ``dtype=bfloat16``:
 float32 parameters, convolutions, linears and activations in bf16 (under
 ``torch.autocast``), GroupNorm statistics and attention softmax in f32
@@ -17,11 +22,16 @@ Submodule names are the diffusers state-dict keys (``down_blocks.I.resnets.J``,
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..config.registry import UNetSpec
 from .layers import (
@@ -36,6 +46,29 @@ from .layers import (
 
 _DOWN_TYPES = {"DownBlock2D", "AttnDownBlock2D"}
 _UP_TYPES = {"UpBlock2D", "AttnUpBlock2D"}
+REMAT_POLICIES = ("full", "convs", "convs_dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _saves(policy: str, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy: which op outputs a block keeps for the
+    backward under `policy`; everything else is recomputed."""
+    if (op is torch.ops.aten.convolution.default and args[1].dim() == 4
+            and tuple(args[1].shape[-2:]) == (3, 3)):
+        return CheckpointPolicy.MUST_SAVE
+    if policy == "convs_dots" and op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context_fn(policy: Optional[str]):
+    """The checkpoint `context_fn` of a remat policy (None for ``full``)."""
+    if policy is None or policy == "full":
+        return None
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; expected full|convs|convs_dots")
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_saves, policy))
 
 
 class UNet2D(nn.Module):
@@ -47,7 +80,8 @@ class UNet2D(nn.Module):
     """
 
     def __init__(self, spec: UNetSpec, remat: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         if spec.conditional:
             raise NotImplementedError(
@@ -55,6 +89,7 @@ class UNet2D(nn.Module):
             )
         self.spec = spec
         self.remat = remat
+        self._remat_context = _remat_context_fn(remat_policy)
         self.compute_dtype = compute_dtype
         boc = spec.block_out_channels
         groups, eps = spec.norm_num_groups, spec.norm_eps
@@ -127,9 +162,13 @@ class UNet2D(nn.Module):
         self.conv_out = nn.Conv2d(ch, spec.out_channels, 3, padding=1)
 
     def _run(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
-        """block(*args), recomputed in the backward under remat."""
+        """block(*args), recomputed in the backward under remat (what the
+        remat policy saves excepted)."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            if self._remat_context is None:
+                return checkpoint(block, *args, use_reentrant=False)
+            return checkpoint(block, *args, use_reentrant=False,
+                              context_fn=self._remat_context)
         return block(*args)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
@@ -179,9 +218,11 @@ class UNet2D(nn.Module):
 
 
 def build_unet(spec: UNetSpec, seed: int, remat: bool = False,
-               compute_dtype: Optional[torch.dtype] = None) -> UNet2D:
+               compute_dtype: Optional[torch.dtype] = None,
+               remat_policy: Optional[str] = None) -> UNet2D:
     """A UNet2D with torch's default initialisation drawn from `seed`, without
     touching the caller's global random state."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return UNet2D(spec, remat=remat, compute_dtype=compute_dtype)
+        return UNet2D(spec, remat=remat, compute_dtype=compute_dtype,
+                      remat_policy=remat_policy)

@@ -8,7 +8,13 @@ the backward's two passes (``_flash_bwd_dq_kernel``/``_hp_bwd_dq_kernel``,
 ``csrc/attention_bwd.cu``. Each CUDA kernel serves both TPU layouts by
 reading strides. The JAX package routes each shape between Pallas and XLA
 through a table measured on a TPU; here the kernels are the path for every
-CUDA tensor, in both directions.
+CUDA tensor they take, in both directions. The one shape rule kept is the
+JAX package's own (``pallas_ok = d % 8 == 0 and d <= 256``): a head dim the
+kernels do not take (the VQ-VAE's mid attention, one head of 512) goes to
+XLA there and to the plain f32 version on the card here, in both directions,
+through `attention_plain_route` and `attention_bwd_plain_route`, which count
+their calls. That is a route chosen by shape, not a fallback: no kernel
+error is caught, and a shape the kernels take never reaches it.
 
 `dot_product_attention` is a `torch.autograd.Function` that saves only
 (q, k, v), as the JAX ``custom_vjp`` does, and recomputes the softmax in the
@@ -87,6 +93,41 @@ def attention_bwd_plain(
     return dq, dk, dv
 
 
+def kernel_takes(d: int) -> bool:
+    """Whether the kernels take head dim `d` (the JAX package's `pallas_ok`)."""
+    return d % 8 == 0 and d <= 256
+
+
+def _check_plain_route(q: torch.Tensor) -> None:
+    if kernel_takes(q.shape[-1]) or not q.is_cuda:
+        raise ValueError(f"the plain route is for CUDA tensors whose head dim the kernels "
+                         f"do not take, got D={q.shape[-1]} on {q.device}")
+
+
+def attention_plain_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward on the card for a head dim the kernels do not take: the plain
+    f32 version, the counterpart of the JAX package's ``_xla_attention``."""
+    _check_plain_route(q)
+    attention_plain_route.launches += 1
+    return attention_plain(q, k, v)
+
+
+attention_plain_route.launches = 0
+
+
+def attention_bwd_plain_route(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the card for a head dim the kernels do not take: the
+    plain f32 version (the vjp of ``_xla_attention``)."""
+    _check_plain_route(q)
+    attention_bwd_plain_route.launches += 1
+    return attention_bwd_plain(q, k, v, do)
+
+
+attention_bwd_plain_route.launches = 0
+
+
 def _bind(source: str, symbol: str, pointers: int, ints: int):
     lib = _build.load(source)
     fn = getattr(lib, symbol)
@@ -126,7 +167,7 @@ def _checked(name, q, k, v, *more):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if any(t.shape != q.shape for t in more):
         raise ValueError(f"{name}: gradient shape must be q's {tuple(q.shape)}")
-    if d % 8 or d > 256:
+    if not kernel_takes(d):
         raise ValueError(f"head dim {d} must be a multiple of 8 and at most 256")
     if not (q.is_cuda and all(t.device == q.device for t in (k, v, *more))):
         raise ValueError(f"{name} needs its tensors on one CUDA device")
@@ -261,6 +302,8 @@ class _Attention(torch.autograd.Function):
         with torch.autocast(q.device.type, enabled=False):  # f32 inside, as the kernel
             if q.device.type == "cpu":
                 return attention_plain(q, k, v)
+            if not kernel_takes(q.shape[-1]):
+                return attention_plain_route(q, k, v)
             return attention_kernel(q, k, v)
 
     @staticmethod
@@ -285,6 +328,8 @@ class _AttentionBackward(torch.autograd.Function):
     def forward(q, k, v, do):
         if q.device.type == "cpu":
             return attention_bwd_plain(q, k, v, do)
+        if not kernel_takes(q.shape[-1]):
+            return attention_bwd_plain_route(q, k, v, do)
         return attention_bwd_kernel(q, k, v, do.to(q.dtype))
 
     @staticmethod
@@ -306,5 +351,6 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Scaled dot-product attention on (B, S, H, D), differentiable and
     transformable by torch.func (`vmap`, `grad`): the CUDA kernels for CUDA
-    tensors, the plain versions for CPU tensors."""
+    tensors (the plain route for a head dim they do not take), the plain
+    versions for CPU tensors."""
     return _Attention.apply(q, k, v)

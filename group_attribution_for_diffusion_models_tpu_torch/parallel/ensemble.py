@@ -9,10 +9,11 @@ vmap rules that take a gamma/beta per member, so `torch.func.vmap` over
 `stack_module_state` runs one launch a layer for every member. Training
 that way, or capturing the step in a CUDA graph, is later work.
 
-Data path: the whole training set stays on the device as uint8 (NCHW). Each
-member draws its batch slots on the device from its padded remaining-index
-table, modulo its true size, so every member samples uniformly with
-replacement from exactly its own subset.
+Data path: the whole training set stays on the device (NCHW): pixels as
+uint8, or, for latent workloads, the VQ-VAE's float32 latents as the JAX
+trainer keeps them. Each member draws its batch slots on the device from its
+padded remaining-index table, modulo its true size, so every member samples
+uniformly with replacement from exactly its own subset.
 
 Randomness: each ensemble step has a seed, `_step_seed(seed, step)`, as in
 the JAX trainer. With `common_noise` one generator, seeded from it, draws
@@ -79,9 +80,9 @@ class EnsembleTrainer:
     Args:
         tx: the optimizer (shared configuration; each member has its own state).
         schedule/spec: noise schedule, `schedule` on `device`.
-        images_u8: full training set, (N, H, W, C) uint8, moved to the
-            device once (the JAX trainer's float32 latents come with the LDM
-            slice).
+        images_u8: full training set, (N, H, W, C), moved to the device
+            once: uint8 pixels, or float32 latents used as they are (the JAX
+            trainer's name and rule for both).
         member_indices: per-member remaining indices (ragged), from
             data.removal samplers.
         batch_size: per-member batch size.
@@ -103,8 +104,8 @@ class EnsembleTrainer:
         self.num_members = len(self.member_indices)
         self._sizes = [int(s) for s in sizes]
         self._table = torch.from_numpy(table).long().to(self.device)
-        if self.images_u8.dtype != np.uint8:
-            raise ValueError(f"images must be uint8, got {self.images_u8.dtype}")
+        if self.images_u8.dtype not in (np.uint8, np.float32):
+            raise ValueError(f"images must be uint8 or float32, got {self.images_u8.dtype}")
         self._images = torch.from_numpy(
             np.ascontiguousarray(self.images_u8.transpose(0, 3, 1, 2))
         ).to(self.device)
@@ -140,9 +141,11 @@ class EnsembleTrainer:
         return raw, t, noise
 
     def batch(self, member: int, raw: torch.Tensor) -> torch.Tensor:
-        """The member's images at slots raw % size, as float32 NCHW in [-1, 1]."""
+        """The member's data at slots raw % size, as float32 NCHW: uint8
+        pixels mapped to [-1, 1], float32 latents as they are."""
         idx = self._table[member].index_select(0, raw % self._sizes[member])
-        return self._images.index_select(0, idx).float() / 127.5 - 1.0
+        batch = self._images.index_select(0, idx)
+        return batch.float() / 127.5 - 1.0 if batch.dtype == torch.uint8 else batch
 
     def step(self, states: List[TrainState], step_seed: int) -> torch.Tensor:
         """One step of every member; returns the (M,) losses on the device."""

@@ -194,7 +194,7 @@ def _run_port(outdir, *extra):
 
 # Flags of the JAX CLI this slice leaves out, each with its ROADMAP queue
 # item; the port adds --device.
-LEFT_OUT = {"mesh_ensemble", "mesh_data", "remat_policy", "vqvae_weights", "profile_dir"}
+LEFT_OUT = {"mesh_ensemble", "mesh_data", "profile_dir"}
 
 
 def test_train_ensemble_matches_the_jax_cli(tmp_path, monkeypatch):

@@ -24,8 +24,10 @@ from group_attribution_for_diffusion_models_tpu_torch.ops import (
     attention_bwd_dq_plain,
     attention_bwd_kernel,
     attention_bwd_plain,
+    attention_bwd_plain_route,
     attention_kernel,
     attention_plain,
+    attention_plain_route,
     dot_product_attention,
     group_norm_bwd_kernel,
     group_norm_kernel,
@@ -203,6 +205,48 @@ def test_attention_bwd_passes_repeat_bitwise(cuda, dtype, b, sq, skv, h, d):
                        torch.cat(attention_bwd_dkv(q, k, v, do, lse, delta)))
 
 
+# The CelebA U-Net's attention, head dim 32 (the D <= 64 template): 14 heads
+# at 32x32 latents, 21 at 16x16, 28 at 8x8.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h", [(2, 1024, 14), (2, 256, 21), (2, 64, 28)])
+def test_attention_kernels_at_the_celeba_unet_shapes(cuda, dtype, b, s, h):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, do = (torch.randn(b, s, h, 32, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    atol, rtol = TOL[dtype]
+    out = attention_kernel(q, k, v)
+    torch.testing.assert_close(out.float(), attention_plain(q, k, v).float(),
+                               atol=atol, rtol=rtol)
+    assert torch.equal(out, attention_kernel(q, k, v))
+    got = attention_bwd_kernel(q, k, v, do)
+    for a, w in zip(got, attention_bwd_plain(q, k, v, do)):
+        torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol)
+    assert all(torch.equal(a, w) for a, w in zip(got, attention_bwd_kernel(q, k, v, do)))
+
+
+def test_attention_at_head_dim_512_takes_the_plain_route(cuda):
+    """The VQ-VAE's mid attention (one head of 512, which the kernels do not
+    take) runs the plain f32 version on the card in both directions, counted
+    on the route and not on the kernels; the kernel itself refuses it."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(2, 256, 1, 512, generator=g, device=cuda).requires_grad_(True)
+               for _ in range(3))
+    do = torch.randn(2, 256, 1, 512, generator=g, device=cuda)
+    kernels = (attention_kernel.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    routes = (attention_plain_route.launches, attention_bwd_plain_route.launches)
+    out = dot_product_attention(q, k, v)
+    out.backward(do)
+    assert (attention_plain_route.launches, attention_bwd_plain_route.launches) == (
+        routes[0] + 1, routes[1] + 1)
+    assert (attention_kernel.launches, attention_bwd_dq.launches,
+            attention_bwd_dkv.launches) == kernels
+    torch.testing.assert_close(out, attention_plain(q, k, v), atol=0, rtol=0)
+    for got, want in zip((q.grad, k.grad, v.grad), attention_bwd_plain(q, k, v, do)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_kernel(q.detach(), k.detach(), v.detach())
+
+
 def test_attention_bwd_copies_rows_off_16_bytes(cuda):
     """A view whose rows do not start on 16 bytes is copied before the 16-byte
     loads, with the same gradients."""
@@ -260,9 +304,9 @@ def _gn_case(cuda, shape, dtype, seed, rows=None):
     return x, gamma, beta, dy
 
 
-def _check_gn_both(x, gamma, beta, dy, groups, silu, dtype):
+def _check_gn_both(x, gamma, beta, dy, groups, silu, dtype, eps=1e-6):
     """Both kernels against their plain versions, each repeated bit for bit."""
-    args = (x, gamma, beta, groups, 1e-6, silu, dtype)
+    args = (x, gamma, beta, groups, eps, silu, dtype)
     got = group_norm_kernel(*args)
     want = group_norm_silu_plain(*args)
     for a, w, (atol, rtol) in zip(got, want, (TOL[dtype], (1e-5, 1e-5), (1e-5, 1e-5))):
@@ -316,6 +360,17 @@ def test_group_norm_kernels_take_a_gamma_row_per_run_of_samples(cuda, dtype, sha
     rows = {"shared": None, "R1": 1, "R2": 2, "RB": shape[0]}[rows]
     x, gamma, beta, dy = _gn_case(cuda, shape, dtype, 8, rows)
     _check_gn_both(x, gamma, beta, dy, groups, True, dtype)
+
+
+# The CelebA LDM's GroupNorms in the streaming class: a group of the U-Net's
+# 224 channels at 64x64 holds 7 x 4096 elements (eps 1e-5), one of the
+# VQ-VAE's 128 channels at 256x256 4 x 65,536 (eps 1e-6).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,eps", [((2, 224, 64, 64), 1e-5), ((1, 128, 256, 256), 1e-6)])
+@pytest.mark.parametrize("silu", [True, False])
+def test_group_norm_kernels_at_the_ldm_streaming_shapes(cuda, dtype, shape, eps, silu):
+    x, gamma, beta, dy = _gn_case(cuda, shape, dtype, 10)
+    _check_gn_both(x, gamma, beta, dy, 32, silu, dtype, eps)
 
 
 def test_group_norm_kernels_read_tensors_off_16_bytes(cuda):

@@ -173,7 +173,7 @@ def _stand_in_trainer(parse_args, calls):
             append_record(args.db, {**vars(args), "removal_seed": seed,
                                     "remaining_idx": remaining, "removed_idx": removed,
                                     "eval_loss": float(value)})
-        return {f"{k}_seconds": 0.0 for k in ("train", "sample", "tower", "fid")}
+        return {f"{k}_seconds": 0.0 for k in ("train", "sample", "tower", "fid", "encode")}
 
     return main
 
@@ -269,8 +269,8 @@ def test_31_test_rows_land_in_3_groups_with_none_dropped(monkeypatch, tmp_path):
     assert port_out["summary"]["test_groups"] == 3
 
 
-# JAX common flags of slices not ported yet (the LDM path, a torch profiler).
-LEFT_OUT = {"vqvae_weights", "profile_dir"}
+# The JAX common flag of a slice not ported yet (a torch profiler).
+LEFT_OUT = {"profile_dir"}
 
 
 @pytest.mark.parametrize("name,argv", [
@@ -297,14 +297,19 @@ def test_entry_points_default_to_cuda_and_name_what_is_not_ported(tmp_path):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 mod.main(argv)
-    # The sample behaviors run (tests/test_torch_scoring_cli.py); what the loop
-    # still refuses is a latent (VQ-VAE) workload.
+    # The sample behaviors run (tests/test_torch_scoring_cli.py), and so does a
+    # latent (VQ-VAE) workload: its calls share one encode of the dataset.
     for behavior in ("fid_value", "is"):
         assert shapley_pipeline.parse_args(
             ["--dataset", DATASET, "--behavior", behavior]).behavior == behavior
-    with pytest.raises(NotImplementedError, match="latent .* not ported yet"):
-        shapley_pipeline.main(["--dataset", "synthetic_64x8_ldm", "--device", "cpu",
-                               "--outdir", str(tmp_path)])
+    ldm = shapley_pipeline.main([
+        "--dataset", "synthetic_64x8_ldm", "--num_fit_subsets", "3", "--num_test_subsets", "2",
+        "--training_steps", "1", "--batch_size", "4", "--chunk_size", "3", "--device", "cpu",
+        "--outdir", str(tmp_path)])
+    assert (tmp_path / "synthetic_64x8_ldm" / "precomputed_emb" / "vqvae_latents.npy").exists()
+    assert ldm["attrs"].shape == (64,) and np.isfinite(ldm["attrs"]).all()
+    assert abs(ldm["attrs"].sum() - (ldm["v1"] - ldm["v0"])) <= 1e-6 * max(
+        1.0, abs(ldm["v1"] - ldm["v0"]))
     with pytest.raises(SystemExit, match="overlap"):
         shapley_pipeline.main(["--dataset", DATASET, "--fit_dist", "datamodel",
                                "--removal_seed", "40", "--num_fit_subsets", "8",
