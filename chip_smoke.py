@@ -101,9 +101,30 @@ Phases (one line each; any failure raises and exits non-zero):
     (the JAX package's CelebA option): the same weights bit for bit, the
     recompute's launches, the peak memory of each.
 
+13. tti: the text-to-image tier at full miniSD width (the 860M conditional
+    U-Net, the CLIP ViT-L/14 text tower, the KL VAE, rank-256 LoRA on every
+    attention projection, seeded random towers; f32, TF32 off) on an
+    ArtBench-style stand-in in Imagenette's layout (256 smooth 256x256 PNGs
+    named <artist>_<title>_<year>.png, 16 artists): the attention kernels at
+    miniSD's self- and cross-attention shapes (Skv = 77; head dims 40, 80 and
+    160) forward and backward at batch 64, every GroupNorm of a U-Net pass
+    (batch 64), of a KL encode (batch 64) and decode (batch 8) against their
+    plain versions, repeated bit for bit, timed beside their bounds, library
+    and plain times; the plain route at the KL mid attention timed. Then
+    ``cli.train_text_to_image_lora.main`` (2 datamodel members x 3 steps at
+    batch 64, the base frozen: no GroupNorm gamma/beta reduction; the
+    latents encoded once), ``cli.prune_lora.main`` (ratio 0.5), a 3-step
+    ``--method pruned_ft`` of the pruned LoRA (the latents' cache reused),
+    ``cli.generate_samples_tti.main`` (16 images x 50 DDIM steps, and a
+    second call that resumes with nothing to do), each with its launches and
+    plain-route calls reckoned from the specs; and a card-vs-CPU reference
+    at batch 1 of 3 DDIM steps of the LoRA'd base with a CLIP context, the
+    text tower on 2 prompts, and the KL encode and decode.
+
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
-attention route's calls are counted apart and taken only in [ldm]. The last two lines
+attention route's calls are counted apart and taken only by the VAEs' mid
+attention ([ldm], [tti]). The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``. Without
 CUDA it exits non-zero and prints no result.
 """
@@ -253,6 +274,29 @@ VQ_ATTN_SHAPES = [(LDM_VQ_BATCH, 4096, 1, 512), (32, 4096, 1, 512)]
 # positions agree (a latent within rounding of two codes may part).
 LDM_LATENT_ATOL, LDM_DECODE_ATOL, LDM_ENCODE_ATOL = 2e-3, 2e-3, 1e-3
 LDM_CODE_AGREEMENT, LDM_REF_STEPS = 0.99, 3
+# The text-to-image tier at full miniSD width on an ArtBench-style stand-in:
+# TTI_ARTISTS x TTI_PER_ARTIST smooth 256x256 PNGs; datamodel seeds 0 and 1
+# (alpha 0.5) keep 8 of the 16 artists, 128 images, so members train at 64.
+TTI_ARTISTS, TTI_PER_ARTIST = 16, 16
+TTI_MEMBERS, TTI_STEPS, TTI_BATCH, TTI_RANK = 2, 3, 64, 256
+TTI_ENCODE_BATCH = 64  # precompute_latents' batch
+TTI_SAMPLES, TTI_SAMPLE_STEPS = 16, 50  # generate_samples_tti, one batch
+TTI_PRUNE_RATIO = 0.5
+TTI_ATTN_SHAPES = [  # miniSD's attention at training batch 64, 8 heads: self, then cross
+    (64, 1024, 1024, 8, 40), (64, 1024, 77, 8, 40),    # 32x32 latents, width 320
+    (64, 256, 256, 8, 80), (64, 256, 77, 8, 80),       # 16x16, width 640
+    (64, 64, 64, 8, 160), (64, 64, 77, 8, 160),        # 8x8, width 1280
+    (64, 16, 16, 8, 160), (64, 16, 77, 8, 160),        # the 4x4 mid block
+]
+KL_ATTN_SHAPES = [(TTI_ENCODE_BATCH, 1024, 1, 512)]  # the KL encoder's mid attention
+KL_DECODE_BATCH = 8  # the KL decoder's GroupNorms, held at this batch
+# Card vs CPU at batch 1, f32, TF32 off: 3 DDIM steps of the LoRA'd miniSD
+# U-Net (25 resnets and 16 transformers, as the CelebA U-Net's 2e-3 after 3
+# steps); the CLIP tower's last hidden state (12 layers of products and
+# LayerNorms of width 768, values of order 1); the KL encoder's scaled
+# latents and the decoder's images in [0, 1], as the VQ-VAE's.
+TTI_LATENT_ATOL, TTI_TEXT_ATOL, TTI_ENCODE_ATOL, TTI_DECODE_ATOL = 2e-3, 1e-4, 1e-3, 2e-3
+TTI_REF_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -285,8 +329,9 @@ def device_ms(torch, fn, iters: int = 10, names: list | None = None) -> float:
     """Device time of fn's kernels per call, from torch.profiler: an event-timed
     loop of a call whose host side outlasts its kernels reads the host. The
     names of the kernels that ran are appended to `names` if given. A trace
-    that recorded no device activity (the profiler drops one now and then) is
-    taken again, up to three times in all, then raises."""
+    that recorded no device activity (the profiler drops one now and then, and
+    in one call dropped three in a row) is taken again, up to three times in
+    all; then the call is timed with CUDA events instead, and the log says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -301,7 +346,9 @@ def device_ms(torch, fn, iters: int = 10, names: list | None = None) -> float:
         if events:
             break
     else:
-        raise RuntimeError("torch.profiler recorded no device time in three traces")
+        log("device_ms: torch.profiler recorded no device time in three traces; "
+            "this time is event-timed")
+        return cuda_ms(torch, fn, iters)
     if names is not None:
         names += [e.key for e in events]
     return sum(e.self_device_time_total for e in events) / 1e3 / iters
@@ -373,6 +420,25 @@ def write_celeba_standin(root: str, n: int = LDM_IMAGES, ids=LDM_IDS, seed: int 
         f.write("\n".join(lines) + "\n")
 
 
+def write_artbench_standin(root: str, artists: int = TTI_ARTISTS,
+                           per_artist: int = TTI_PER_ARTIST, seed: int = 0) -> None:
+    """An ArtBench-style stand-in in Imagenette's layout: <root>/imagenette2/
+    train/ with artists x per_artist smooth 256x256 RGB PNGs (an 8x8 random
+    image resized bilinearly) named <artist>_<title>_<year>.png, the file
+    names the text-to-image trainer takes its artists from."""
+    import numpy as np
+    from PIL import Image
+
+    base = os.path.join(root, "imagenette2", "train")
+    os.makedirs(base)
+    rng = np.random.default_rng(seed)
+    for a in range(artists):
+        for j in range(per_artist):
+            small = Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8))
+            small.resize((256, 256), Image.BILINEAR).save(
+                os.path.join(base, f"painter-{a:02d}_work-{j:02d}_{1880 + j}.png"))
+
+
 def reset_counts(ops) -> None:
     for fn in ops.KERNELS.values():
         fn.launches = 0
@@ -395,7 +461,7 @@ def unet_counts(forwards: int, backwards: int, jl: int = 0, attention_only: int 
 
 
 def check_attention(torch, F, ops, dev, timed_shapes=ATTN_SHAPES, held=ATTN_BWD_EXTRA,
-                    label="kernels"):
+                    label="kernels", dtypes=("float32", "bfloat16")):
     """The forward kernel against its plain version at `timed_shapes` (timed,
     with SDPA's time, event-timed and by the profiler) and `held` (held
     only), each row repeated bit for bit. The bound counts the two
@@ -404,7 +470,7 @@ def check_attention(torch, F, ops, dev, timed_shapes=ATTN_SHAPES, held=ATTN_BWD_
     rows = {}
     for (b, sq, skv, h, d) in timed_shapes + held:
         timed = (b, sq, skv, h, d) in timed_shapes
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, n) for n in dtypes):
             name = str(dtype).split(".")[1]
             g = torch.Generator(device=dev).manual_seed(0)
             q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
@@ -510,7 +576,7 @@ def check_attention_bwd_once(torch, ops, q, k, v, do, name):
 
 
 def check_attention_bwd(torch, F, ops, dev, timed_shapes=ATTN_SHAPES, held=ATTN_BWD_EXTRA,
-                        label="kernels"):
+                        label="kernels", dtypes=("float32", "bfloat16")):
     """Both backward passes against their plain versions, at `timed_shapes`
     (timed) and `held` (held and repeated only). Returns per-pass
     rows {(shape, dtype): {"dq": {...}, "dkv": {...}}}. The least work of the
@@ -540,7 +606,7 @@ def check_attention_bwd(torch, F, ops, dev, timed_shapes=ATTN_SHAPES, held=ATTN_
                                      f"repeatable={same}")
     rows = {}
     for (b, sq, skv, h, d) in timed_shapes:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, n) for n in dtypes):
             name = str(dtype).split(".")[1]
             g = torch.Generator(device=dev).manual_seed(3)
             q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
@@ -644,13 +710,16 @@ def check_group_norm_bwd(torch, F, ops, dev):
 def gn_census_of(torch, spec, device="cpu") -> list:
     """Every GroupNorm of a `spec` U-Net forward as (C, H, W, silu, launches),
     in order of first use, from forward pre-hooks on a batch-1 pass on
-    `device`."""
+    `device` (with a 77-token context for a conditional spec)."""
     from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
 
-    model = UNet2D(spec).eval().to(device)
+    with torch.device(device):
+        model = UNet2D(spec).eval()
+    context = ((torch.zeros(1, 77, spec.cross_attention_dim, device=device),)
+               if spec.conditional else ())
     return _census(torch, model, lambda: model(
         torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size, device=device),
-        torch.zeros(1, dtype=torch.long, device=device)))
+        torch.zeros(1, dtype=torch.long, device=device), *context))
 
 
 def vq_gn_census(torch, spec, device) -> list:
@@ -661,6 +730,20 @@ def vq_gn_census(torch, spec, device) -> list:
     model = VQVAE(spec).eval().to(device)
     x = torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size, device=device)
     return _census(torch, model, lambda: model.decode(model.encode(x), force_not_quantize=True))
+
+
+def kl_gn_census(torch, spec, device) -> tuple:
+    """Every GroupNorm of a KL VAE encode and of a decode, as `gn_census_of`."""
+    from group_attribution_for_diffusion_models_tpu_torch.models.vqvae import AutoencoderKL
+
+    with torch.device(device):
+        model = AutoencoderKL(spec).eval()
+    f = 2 ** (len(spec.block_out_channels) - 1)
+    x = torch.zeros(1, spec.in_channels, spec.sample_size, spec.sample_size, device=device)
+    z = torch.zeros(1, spec.latent_channels, spec.sample_size // f, spec.sample_size // f,
+                    device=device)
+    return (_census(torch, model.encoder, lambda: model.encode(x)),
+            _census(torch, model.decoder, lambda: model.decode(z)))
 
 
 def _census(torch, model, run) -> list:
@@ -1078,23 +1161,41 @@ def add_counts(*counts: dict) -> dict:
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
-def expect(label, counts, routes, want, want_routes) -> None:
-    """Kernel launches and plain-route calls of an [ldm] main path against
-    those reckoned from the spec."""
-    log(f"[ldm] {label} launches {counts} (expected {want}), plain route {routes} "
+def expect(label, counts, routes, want, want_routes, phase="ldm") -> None:
+    """Kernel launches and plain-route calls of an [ldm] or [tti] main path
+    against those reckoned from the spec."""
+    log(f"[{phase}] {label} launches {counts} (expected {want}), plain route {routes} "
         f"(expected {want_routes})")
     if counts != want or routes != want_routes:
         raise AssertionError(f"{label}: launches {counts} {routes}, expected {want} "
                              f"{want_routes}")
 
 
-def check_plain_route(torch, F, ops, dev, label="ldm"):
-    """The plain f32 attention the VQ-VAE's mid attention takes on the card
+def timed_call(torch, ops, fn, argv):
+    """fn(argv) between a reset of the launch and plain-route counters and a
+    read of them: (result, seconds to a device synchronise, launches, route
+    calls, peak device memory in GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    for r in ops.PLAIN_ROUTES.values():
+        r.launches = 0
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, ops.launch_counts(), ops.route_counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_plain_route(torch, F, ops, dev, label="ldm", shapes=VQ_ATTN_SHAPES, backward=True,
+                      what="the VQ mid attention"):
+    """The plain f32 attention the VAEs' mid attention takes on the card
     (head dim 512, which the kernels do not take): what the route runs,
-    forward at VQ_ATTN_SHAPES and backward at train_vqvae's batch, timed with
-    SDPA's time and the bound (the products at the f32 FMA rate), peak
-    memory beside; the route's counter moves once a call."""
-    for i, (b, s_, h, d) in enumerate(VQ_ATTN_SHAPES):
+    forward at `shapes` and, with `backward`, backward at the first (the
+    VQ-VAE's train_vqvae batch), timed with SDPA's time and the bound (the
+    products at the f32 FMA rate), peak memory beside; the route's counter
+    moves once a call."""
+    for i, (b, s_, h, d) in enumerate(shapes):
         g = torch.Generator(device=dev).manual_seed(14)
         q, k, v = (torch.randn(b, s_, h, d, generator=g, device=dev) for _ in range(3))
         before = ops.route_counts()["attention_plain_fwd"]
@@ -1110,10 +1211,10 @@ def check_plain_route(torch, F, ops, dev, label="ldm"):
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=3)
         flops = 4.0 * b * h * s_ * s_ * d
         bms, by = bound(4 * q.numel() * 4, flops, "float32")
-        log(f"[{label}] plain route attention B={b} S={s_} H={h} D={d} float32 (the VQ mid "
-            f"attention): plain_ms={ms:.3f} (peak {peak:.2f} GiB) library_ms={lib_ms:.3f} "
+        log(f"[{label}] plain route attention B={b} S={s_} H={h} D={d} float32 ({what}): "
+            f"plain_ms={ms:.3f} (peak {peak:.2f} GiB) library_ms={lib_ms:.3f} "
             f"(SDPA) bound_ms={bms:.3f} ({by}, f32 FMA)")
-        if i == 0:
+        if i == 0 and backward:
             do = torch.randn(b, s_, h, d, generator=g, device=dev)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1183,16 +1284,7 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
                                                   "attention_plain_bwd": 0})
 
     def timed(fn, argv):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(ops)
-        for r in ops.PLAIN_ROUTES.values():
-            r.launches = 0
-        t0 = time.perf_counter()
-        out = fn(argv)
-        torch.cuda.synchronize()
-        return (out, time.perf_counter() - t0, ops.launch_counts(), ops.route_counts(),
-                torch.cuda.max_memory_allocated() / 2**30)
+        return timed_call(torch, ops, fn, argv)
 
     # Kernels at the workload's shapes.
     unet_census = gn_census_of(torch, spec, device=dev)
@@ -1396,6 +1488,257 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
         f"equal={same}")
     if not same:
         raise AssertionError("--remat_policy convs trained other weights than no remat")
+    return total
+
+
+def tti_counts(n_attn: int, n_gn: int, n_gn_bwd: int, forwards: int, backwards: int = 0) -> dict:
+    """Kernel launches of a U-Net with `n_attn` attention calls and `n_gn`
+    GroupNorms a forward, `n_gn_bwd` of which run a backward."""
+    return {"attention_fwd": n_attn * forwards, "attention_bwd_dq": n_attn * backwards,
+            "attention_bwd_dkv": n_attn * backwards, "group_norm_fwd": n_gn * forwards,
+            "group_norm_bwd": n_gn_bwd * backwards, "jl_projection": 0}
+
+
+def meta_copy(torch, cls, module, *args):
+    """A CPU `cls(*args)` holding `module`'s parameters and buffers (no init)."""
+    with torch.device("meta"):
+        copy = cls(*args)
+    copy.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()}, assign=True)
+    return copy.eval()
+
+
+def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
+    """The text-to-image tier at full miniSD width (the 860M U-Net, CLIP
+    ViT-L/14's text tower, the KL VAE, rank-256 LoRA; seeded random towers)
+    on the ArtBench-style stand-in: the kernels at its shapes, then its main
+    paths between counter resets and reads, launches reckoned from the specs:
+    train_text_to_image_lora (2 members, latents encoded once), prune_lora,
+    a sparse fine-tune of the pruned LoRA (the cache reused),
+    generate_samples_tti (and its resume); then a card-vs-CPU reference of
+    sampling, the text tower and the KL VAE. Returns the summed launches."""
+    import torch.nn.functional as F
+    from PIL import Image
+    from torch.func import functional_call
+
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        generate_samples_tti, prune_lora, train_text_to_image_lora)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import (
+        MINISD_SCHEDULER, MINISD_UNET, MINISD_VAE, PROMPTS_ARTBENCH)
+    from group_attribution_for_diffusion_models_tpu_torch.data import create_dataset
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D, build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.models.clip_text import (
+        CLIPTextEncoder, load_clip_text, load_tokenizer)
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        CrossAttention, GroupNormSiLU, SpatialTransformer)
+    from group_attribution_for_diffusion_models_tpu_torch.models.lora import (
+        load_lora_npz, lora_collection, lora_ranks, target_modules)
+    from group_attribution_for_diffusion_models_tpu_torch.models.vqvae import (
+        AutoencoderKL, load_sd_vae, precompute_latents)
+
+    spec, vae_spec = MINISD_UNET, MINISD_VAE
+    with torch.device("meta"):
+        unet, vae, text = UNet2D(spec), AutoencoderKL(vae_spec), CLIPTextEncoder()
+    n_attn = sum(isinstance(m, CrossAttention) for m in unet.modules())
+    n_xf = sum(isinstance(m, SpatialTransformer) for m in unet.modules())
+    n_gn = sum(isinstance(m, GroupNormSiLU) for m in unet.modules())
+    n_enc = sum(isinstance(m, GroupNormSiLU) for m in vae.encoder.modules())
+    n_dec = sum(isinstance(m, GroupNormSiLU) for m in vae.decoder.modules())
+    counts_of = {name: sum(p.numel() for p in m.parameters())
+                 for name, m in (("unet", unet), ("text", text), ("vae", vae))}
+    targets = target_modules(unet)
+    lora_params = sum(min(TTI_RANK, m.in_features, m.out_features)
+                      * (m.in_features + m.out_features) for _, m in targets)
+    # LoRA training: nothing before down block 0's first LoRA'd projection
+    # needs a gradient, so its first resnet's two GroupNorms and its first
+    # transformer's GroupNorm run no backward; every later one does.
+    n_gn_bwd = n_gn - 3
+    log(f"[tti] miniSD U-Net {counts_of['unet']} params, {n_xf} transformers ({n_attn} "
+        f"attention calls a forward), {n_gn} GroupNorms a forward ({n_gn_bwd} with a backward "
+        f"in LoRA training); CLIP text tower {counts_of['text']} params; KL VAE "
+        f"{counts_of['vae']} params, GroupNorms encoder {n_enc}, decoder {n_dec}, one mid "
+        f"attention each (D=512, the plain route); rank-{TTI_RANK} LoRA {lora_params} params "
+        f"in {len(targets)} pairs")
+    if (counts_of["unet"], n_attn, counts_of["text"], counts_of["vae"], lora_params) != (
+            859_520_964, 32, 123_060_480, 83_653_863, 51_019_776):
+        raise AssertionError("the miniSD towers do not have the published sizes")
+    del unet, vae, text
+
+    # Kernels at the tier's shapes, f32 (the tier's dtype).
+    unet_census = gn_census_of(torch, spec, device=dev)
+    enc_census, dec_census = kl_gn_census(torch, vae_spec, dev)
+    if (sum(n for *_, n in unet_census) != n_gn or sum(n for *_, n in enc_census) != n_enc
+            or sum(n for *_, n in dec_census) != n_dec):
+        raise AssertionError("the census helpers disagree with the models' GroupNorms")
+    log(f"[tti] GroupNorm shapes (C, H, W, silu, launches): U-Net {unet_census}; KL encoder "
+        f"{enc_census}; KL decoder {dec_census}")
+    check_attention(torch, F, ops, dev, TTI_ATTN_SHAPES, [], "tti", dtypes=("float32",))
+    check_attention_bwd(torch, F, ops, dev, TTI_ATTN_SHAPES, [], "tti", dtypes=("float32",))
+    check_gn_census(torch, ops, dev, unet_census, label="tti", batch=TTI_BATCH,
+                    eps=spec.norm_eps, dtypes=("float32",), library=True,
+                    what="miniSD U-Net pass")
+    check_gn_census(torch, ops, dev, enc_census, label="tti", batch=TTI_ENCODE_BATCH, eps=1e-6,
+                    dtypes=("float32",), library=True, what="KL encode")
+    check_gn_census(torch, ops, dev, dec_census, label="tti", batch=KL_DECODE_BATCH, eps=1e-6,
+                    dtypes=("float32",), library=True, what="KL decode")
+    check_plain_route(torch, F, ops, dev, "tti", KL_ATTN_SHAPES, backward=False,
+                      what="the KL encoder's mid attention")
+
+    def timed(fn, argv):
+        return timed_call(torch, ops, fn, argv)
+
+    no_route = {"attention_plain_fwd": 0, "attention_plain_bwd": 0}
+    outdir = os.path.join(root, "tti")
+    common = ["--dataset", "imagenette", "--outdir", outdir, "--removal_dist", "datamodel",
+              "--max_train_steps", str(TTI_STEPS), "--train_batch_size", str(TTI_BATCH),
+              "--rank", str(TTI_RANK), "--log_freq", "1", "--device", "cuda"]
+    images = TTI_ARTISTS * TTI_PER_ARTIST
+    encodes = -(-images // TTI_ENCODE_BATCH)
+    sums = ops.group_norm_silu.affine_sums
+    r, wall, counts, routes, peak = timed(train_text_to_image_lora.main,
+                                          common + ["--num_seeds", str(TTI_MEMBERS)])
+    steps = TTI_MEMBERS * TTI_STEPS
+    sec, step_s = r["seconds"], r["step_seconds"]
+    warm = sum(step_s[1:]) / (len(step_s) - 1) / TTI_MEMBERS
+    cache = os.path.join(outdir, "precomputed_emb", "vae_latents.npy")
+    log(f"[tti] train_text_to_image_lora imagenette (ArtBench-style stand-in, {images} images, "
+        f"{TTI_ARTISTS} artists) full miniSD width f32 on {card}: {TTI_MEMBERS} datamodel "
+        f"members x {TTI_STEPS} steps, subsets {r['subset_sizes']} images, effective batch "
+        f"{r['batch']}" + ("" if r["batch"] == TTI_BATCH else
+                           f" (under {TTI_BATCH}: the smallest subset bounds it)")
+        + f", rank {TTI_RANK} ({r['lora_params']} LoRA params a member); towers "
+        f"{sec['towers']:.3f} s, VAE encode of {images} images {sec['latents']:.3f} s (cache "
+        f"{np.load(cache).shape}), caption embedding {sec['embed']:.3f} s, training "
+        f"{sec['train']:.3f} s ({steps} member-steps; step seconds "
+        f"{[round(x, 4) for x in step_s]}, warm {warm:.4f} s a member-step = "
+        f"{1 / warm:.4f} member-steps/s); call {wall:.3f} s, peak {peak:.2f} GiB; losses "
+        f"{r['losses']}; GroupNorm affine reductions {ops.group_norm_silu.affine_sums - sums}")
+    want = add_counts(tti_counts(n_attn, n_gn, n_gn_bwd, steps, steps),
+                      tti_counts(0, n_enc, 0, encodes))
+    expect("train_text_to_image_lora", counts, routes, want,
+           {"attention_plain_fwd": encodes, "attention_plain_bwd": 0}, phase="tti")
+    rows = [json.loads(line) for line in open(r["db"])]
+    if not (r["latents_cached"] is False and os.path.exists(cache)
+            and all(math.isfinite(x) for x in r["losses"]) and len(rows) == TTI_MEMBERS
+            and all(os.path.exists(p) for p in r["lora_paths"]) and len(r["lora_paths"]) == 2
+            and ops.group_norm_silu.affine_sums == sums):
+        raise AssertionError(f"train_text_to_image_lora: {r}")
+    total = counts
+    # The encode alone, for its own peak: the trainer's precompute on the stand-in.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        precompute_latents(load_sd_vae(vae_spec, device=dev, quiet=True),
+                           create_dataset("imagenette").images)
+    torch.cuda.synchronize()
+    log(f"[tti] the KL encode of the stand-in alone (load, decode of the PNGs, {encodes} "
+        f"batches of {TTI_ENCODE_BATCH}): {time.perf_counter() - t0:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    pruned = os.path.join(outdir, "pruned", "lora_weights.npz")
+    t0 = time.perf_counter()
+    p = prune_lora.main(["--lora_dir", r["lora_paths"][0], "--pruning_ratio",
+                         str(TTI_PRUNE_RATIO), "--save_path", pruned])
+    prune_s = time.perf_counter() - t0
+    with open(p["info"]) as f:
+        info = f.read().splitlines()[1].split(",")
+    ranks = sorted(set(p["ranks"].values()))
+    log(f"[tti] prune_lora ratio {TTI_PRUNE_RATIO} on member {r['seeds'][0]}: "
+        f"{p['params_before']} -> {p['params_after']} params, info.csv actual ratio {info[2]}, "
+        f"ranks {ranks[0]}..{ranks[-1]} ({len(ranks)} distinct), {prune_s:.3f} s")
+    if not (abs(float(info[2]) - TTI_PRUNE_RATIO) < 1e-3 and len(ranks) > 1):
+        raise AssertionError(f"prune_lora: ratio {info[2]}, ranks {ranks}")
+
+    f_out, f_wall, counts, routes, peak = timed(train_text_to_image_lora.main, common + [
+        "--num_seeds", "1", "--method", "pruned_ft", "--lora_dir", pruned])
+    f_step = f_out["step_seconds"]
+    log(f"[tti] train_text_to_image_lora --method pruned_ft --lora_dir <pruned> 1 member x "
+        f"{TTI_STEPS} steps at batch {f_out['batch']} ({f_out['lora_params']} LoRA params): "
+        f"latents from the cache={f_out['latents_cached']}, training {f_out['train_seconds']:.3f} "
+        f"s (step seconds {[round(x, 4) for x in f_step]}), call {f_wall:.3f} s, peak "
+        f"{peak:.2f} GiB, loss {f_out['losses']}")
+    expect("pruned_ft", counts, routes,
+           tti_counts(n_attn, n_gn, n_gn_bwd, TTI_STEPS, TTI_STEPS), no_route, phase="tti")
+    trained = load_lora_npz(f_out["lora_paths"][0])
+    if not (f_out["latents_cached"] and lora_ranks(trained) == p["ranks"]
+            and all(math.isfinite(x) for x in f_out["losses"])
+            and ops.group_norm_silu.affine_sums == sums):
+        raise AssertionError(f"pruned_ft: {f_out}")
+    total = add_counts(total, counts)
+
+    samples = os.path.join(outdir, "samples")
+    argv = ["--dataset", "imagenette", "--lora_dir", r["lora_paths"][0], "--sample_outdir",
+            samples, "--n_samples_per_style", str(TTI_SAMPLES), "--batch_size",
+            str(TTI_SAMPLES), "--num_inference_steps", str(TTI_SAMPLE_STEPS), "--device", "cuda"]
+    g, g_wall, counts, routes, peak = timed(generate_samples_tti.main, argv)
+    expect("generate_samples_tti", counts, routes,
+           tti_counts(n_attn, n_gn, 0, TTI_SAMPLE_STEPS), no_route, phase="tti")
+    total = add_counts(total, counts)
+    imgs = np.stack([np.asarray(Image.open(path)) for path in g["written"]])
+    distinct = len({im.tobytes() for im in imgs})
+    again, _, counts2, routes2, _ = timed(generate_samples_tti.main, argv)
+    log(f"[tti] generate_samples_tti {TTI_SAMPLES} images x {TTI_SAMPLE_STEPS} DDIM steps "
+        f"(one batch, prompt-conditioned, LoRA merged) f32 on {card}: "
+        f"{g['batch_seconds'][0]:.3f} s the batch ({TTI_SAMPLES / g['batch_seconds'][0]:.4f} "
+        f"images/s), call {g_wall:.3f} s, peak {peak:.2f} GiB; {len(imgs)} PNGs "
+        f"{imgs.shape[1:]}, {distinct} distinct; a second call wrote {len(again['written'])} "
+        f"with launches {counts2}")
+    if not (len(imgs) == TTI_SAMPLES and distinct == TTI_SAMPLES and imgs.shape[1:] == (32, 32, 3)
+            and not again["written"] and not any(counts2.values()) and not any(routes2.values())):
+        raise AssertionError("generate_samples_tti did not write 16 distinct PNGs once")
+
+    # Reference: the same weights and noise on the card and on the CPU.
+    base = build_unet(spec, seed=42, device=dev).eval()  # the CLIs' random base (--seed 42)
+    models = {"cpu": meta_copy(torch, UNet2D, base, spec), str(dev): base}
+    text_card = load_clip_text(None, device=dev, quiet=True)
+    text_cpu = meta_copy(torch, CLIPTextEncoder, text_card)
+    ids = torch.from_numpy(load_tokenizer()([PROMPTS_ARTBENCH["post_impressionism"],
+                                             "a Post-Impressionist painting by painter-03"]))
+    with torch.no_grad():
+        e_cpu, e_card = text_cpu(ids.long()), text_card(ids.long().to(dev)).cpu()
+    text_err = (e_card - e_cpu).abs().max().item()
+    noise = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (1, 4, 32, 32)).astype(np.float32))
+    got = {}
+    for device, m in models.items():
+        buffers = lora_collection(load_lora_npz(r["lora_paths"][0], device))
+        seen = []
+
+        def eps(x, t, c, m=m, buffers=buffers):
+            return functional_call(m, buffers, (x, t, c))
+
+        make_sampler(eps, MINISD_SCHEDULER, (1, 4, 32, 32), device=device,
+                     num_inference_steps=TTI_REF_STEPS, decode_fn=lambda z, seen=seen: (
+                         seen.append(z.cpu()) or z), encoder_hidden_states=e_cpu[:1])(
+            init_noise=noise)
+        got[device] = seen[0]
+    lat_err = (got[str(dev)] - got["cpu"]).abs().max().item()
+    vae_card = load_sd_vae(vae_spec, device=dev, quiet=True)
+    vae_cpu = meta_copy(torch, AutoencoderKL, vae_card, vae_spec)
+    first = sorted(os.listdir(os.path.join(os.environ["GADM_DATASET_DIR"], "imagenette2",
+                                           "train")))[0]
+    x = np.asarray(Image.open(os.path.join(os.environ["GADM_DATASET_DIR"], "imagenette2",
+                                           "train", first)), np.float32)
+    x = torch.from_numpy((x / 255.0 - 0.5) / 0.5).permute(2, 0, 1)[None].contiguous()
+    with torch.no_grad():
+        z_cpu, z_card = vae_cpu.encode(x), vae_card.encode(x.to(dev)).cpu()
+        d_cpu, d_card = vae_cpu.decode(z_cpu), vae_card.decode(z_cpu.to(dev)).cpu()
+    enc_err = (z_card - z_cpu).abs().max().item()
+    dec_err = ((d_card / 2 + 0.5).clamp(0, 1) - (d_cpu / 2 + 0.5).clamp(0, 1)).abs().max().item()
+    log(f"[tti] reference batch 1, card vs CPU (f32, TF32 off), the same weights and noise: "
+        f"{TTI_REF_STEPS} DDIM steps of the LoRA'd base with a CLIP context: latents "
+        f"max_abs_err={lat_err:.3g} (tol {TTI_LATENT_ATOL}), |latents|max "
+        f"{got['cpu'].abs().max().item():.3g}; CLIP text tower on 2 prompts "
+        f"max_abs_err={text_err:.3g} (tol {TTI_TEXT_ATOL}); KL encode of a stand-in image "
+        f"max_abs_err={enc_err:.3g} (tol {TTI_ENCODE_ATOL}), decode of those latents "
+        f"max_abs_err={dec_err:.3g} on [0, 1] (tol {TTI_DECODE_ATOL})")
+    if not (lat_err <= TTI_LATENT_ATOL and text_err <= TTI_TEXT_ATOL
+            and enc_err <= TTI_ENCODE_ATOL and dec_err <= TTI_DECODE_ATOL
+            and torch.isfinite(got[str(dev)]).all()):
+        raise AssertionError("the text-to-image towers on the card disagree with the CPU")
+    del models, base, text_card, vae_card
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1795,6 +2138,7 @@ def run(torch, tmp: str) -> int:
     data_root = os.path.join(tmp, "datasets")
     write_cifar_standin(data_root, CIFAR_TRAIN_IMAGES)
     write_celeba_standin(data_root)
+    write_artbench_standin(data_root)
     os.environ["GADM_DATASET_DIR"] = data_root
     data_s = time.perf_counter() - t_start
 
@@ -1819,8 +2163,9 @@ def run(torch, tmp: str) -> int:
     libs = _build.build()
     log(f"[build] {len(libs)} libraries from csrc/ in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(os.path.basename(p) for p in libs.values())
-        + f"; CIFAR-10 ({CIFAR_TRAIN_IMAGES} images) and CelebA-HQ ({LDM_IMAGES} images) "
-        f"stand-ins written in {data_s:.1f} s")
+        + f"; CIFAR-10 ({CIFAR_TRAIN_IMAGES} images), CelebA-HQ ({LDM_IMAGES} images) and "
+        f"ArtBench-style ({TTI_ARTISTS * TTI_PER_ARTIST} images) stand-ins written in "
+        f"{data_s:.1f} s")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1913,11 +2258,15 @@ def run(torch, tmp: str) -> int:
     t0 = time.perf_counter()
     ldm_counts = check_ldm(torch, np, ops, tmp, card, dev)
     log(f"[ldm] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tti_counts_ = check_tti(torch, np, ops, tmp, card, dev)
+    log(f"[tti] phase {time.perf_counter() - t0:.1f} s")
 
-    # launches: the six main paths, sampling, training, TRAK, the estimation
-    # loop, the sample behaviors and the latent-diffusion workload.
+    # launches: the seven main paths, sampling, training, TRAK, the estimation
+    # loop, the sample behaviors, the latent-diffusion workload and the
+    # text-to-image tier.
     launches = add_counts(sample_counts, train_counts, trak_counts, pipe_counts, score_counts,
-                          ldm_counts)
+                          ldm_counts, tti_counts_)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

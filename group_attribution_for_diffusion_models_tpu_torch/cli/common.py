@@ -5,8 +5,10 @@ ensemble trainer and the TRAK features read: `config_for` (registry lookup,
 plus the tiny ``synthetic_*`` specs the tests use), the model-directory
 layout, the JSONL provenance row, the tracker, `add_common_args` without
 ``--vqvae_weights`` (the LDM slice) and ``--profile_dir`` (a torch profiler
-comes later), and `checkpoint_spec`; and for the scoring CLIs, the sample
-directory loader (`load_sample_dir`) and the reference images of FID.
+comes later), and `checkpoint_spec`; for the scoring CLIs, the sample
+directory loader (`load_sample_dir`) and the reference images of FID; and
+for the text-to-image CLIs, the pretrained-tower flags and their loaders
+(`add_sd_pretrained_args`, `sd_text_params`, `sd_base_params`).
 """
 
 from __future__ import annotations
@@ -218,3 +220,61 @@ def reference_images(dataset, n: int) -> np.ndarray:
     """The first `n` training images in [0, 1], RGB, NHWC: the reference set
     FID is measured against."""
     return as_rgb(dataset.images[:n] / 2.0 + 0.5)
+
+
+def add_sd_pretrained_args(parser: argparse.ArgumentParser) -> None:
+    """Pretrained-weight entry points of the text-to-image CLIs. Without them
+    the towers are the seeded random ones, so the same CLIs run both
+    smoke runs and real checkpoints."""
+    parser.add_argument("--unet_ckpt", type=str, default=None,
+                        help="checkpoint directory of the base U-Net in the port's "
+                             "format (as train_ensemble writes it)")
+    parser.add_argument("--text_encoder_weights", type=str, default=None,
+                        help="CLIP text weights: the .npz of the JAX package's "
+                             "cli.convert_weights clip_text, or a torch "
+                             "CLIPTextModel state-dict file")
+    parser.add_argument("--tokenizer_dir", type=str, default=None,
+                        help="dir with CLIP vocab.json + merges.txt "
+                             "(required with --text_encoder_weights)")
+
+
+def validated_text_params(weights_path: str, device="cuda", **config):
+    """The CLIP text tower `config` describes, with the weights in
+    `weights_path`; a file for a tower of other shapes exits with the first
+    mismatches."""
+    from ..models.clip_text import load_clip_text
+
+    return load_clip_text(weights_path, device=device, **config)
+
+
+def sd_text_params(args, device="cuda", **config):
+    """(text tower, tokenize) honoring the pretrained flags: the weights of
+    ``--text_encoder_weights`` (which needs ``--tokenizer_dir``: hash ids
+    would index a real embedding table arbitrarily), else the seeded random
+    tower; the CLIP BPE of ``--tokenizer_dir``, else the hash tokenizer."""
+    from ..models.clip_text import load_clip_text, load_tokenizer
+
+    if args.text_encoder_weights:
+        if not args.tokenizer_dir:
+            raise SystemExit(
+                "--text_encoder_weights needs --tokenizer_dir "
+                "(vocab.json + merges.txt): hash-tokenized prompts would "
+                "index the real embedding table with arbitrary ids")
+        text = validated_text_params(args.text_encoder_weights, device, **config)
+        print(f"loaded text encoder weights from {args.text_encoder_weights}")
+    else:
+        text = load_clip_text(None, device=device, **config)
+    return text, load_tokenizer(args.tokenizer_dir)
+
+
+def sd_base_params(args, model):
+    """The base U-Net: `model` with ``--unet_ckpt``'s params loaded (the
+    reference starts from miniSD's UNet2DConditionModel), else as it is
+    (the seeded random init)."""
+    if not getattr(args, "unet_ckpt", None):
+        return model
+    from ..utils.ckpt import load_checkpoint
+
+    model.load_state_dict(load_checkpoint(args.unet_ckpt)["params"])
+    print(f"loaded base U-Net from {args.unet_ckpt}")
+    return model

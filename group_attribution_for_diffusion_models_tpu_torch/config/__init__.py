@@ -1,5 +1,7 @@
 from . import constants  # noqa: F401
 from .registry import (  # noqa: F401
+    KLVAESpec,
+    LoraTrainSpec,
     OptimizerSpec,
     SchedulerSpec,
     TrainSpec,

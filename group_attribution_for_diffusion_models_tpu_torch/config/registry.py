@@ -1,8 +1,8 @@
 """Declarative workload configuration registry.
 
-The port's own copy of the JAX package's ``config/registry.py`` (the
-unconditional and latent workloads; the text-to-image tail comes with its
-slice). Each workload is a frozen dataclass tree; the U-Net architecture is a
+The port's own copy of the JAX package's ``config/registry.py``: the
+unconditional and latent workloads, and the text-to-image (miniSD LoRA on
+ArtBench) specs at the end of the file. Each workload is a frozen dataclass tree; the U-Net architecture is a
 `UNetSpec` that `models.unet2d.UNet2D` consumes directly. Values are
 field-for-field those of the JAX package so both build the same networks and
 schedules.
@@ -72,6 +72,20 @@ class VQVAESpec:
     num_vq_embeddings: int = 8192
     norm_num_groups: int = 32
     scaling_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class KLVAESpec:
+    """AutoencoderKL (SD 1.x VAE): f=8, 4 latent channels, scaling 0.18215."""
+
+    sample_size: int = 256
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,3 +338,83 @@ def get_config(dataset: str) -> WorkloadConfig:
         raise ValueError(
             f"dataset={dataset!r} must be one of {sorted(_REGISTRY)}"
         ) from None
+
+
+# --- Text-to-image (SD LoRA / ArtBench) configs -----------------------------
+# Reference src/ddpm_config.py:605-703.
+
+PROMPTS_ARTBENCH = {
+    "art_nouveau": "an Art Nouveau painting",
+    "baroque": "a Baroque painting",
+    "expressionism": "an Expressionist painting",
+    "impressionism": "an Impressionist painting",
+    "post_impressionism": "a Post-Impressionist painting",
+    "realism": "a Realist painting",
+    "renaissance": "a painting from the Renaissance",
+    "romanticism": "a Romanticist painting",
+    "surrealism": "a Surrealist painting",
+    "ukiyo_e": "a ukiyo-e print",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraTrainSpec:
+    """SD LoRA fine-tuning recipe (reference src/ddpm_config.py:622-642)."""
+
+    pretrained_model: str = "lambdalabs/miniSD-diffusers"
+    resolution: int = 256
+    train_batch_size: int = 64
+    checkpointing_steps: int = 500
+    center_crop: bool = True
+    random_flip: bool = True
+    num_train_epochs: int = 200
+    learning_rate: float = 3e-4
+    lr_scheduler: str = "cosine"
+    adam_weight_decay: float = 1e-6
+    rank: int = 256
+    cls_key: str = "style"
+    cls: str = "post_impressionism"
+    max_train_steps: Optional[int] = None  # unlearning configs cap at 200
+
+
+ARTBENCH_POST_IMPRESSIONISM_LORA = LoraTrainSpec()
+ARTBENCH_NUM_GROUPS = 258  # reference src/ddpm_config.py:700-703
+
+# miniSD (lambdalabs/miniSD-diffusers): SD 1.x U-Net at 256px -> 32x32 latents,
+# CLIP ViT-L/14 text conditioning, DDPM scaled_linear schedule
+# (the reference's text-to-image base model, src/ddpm_config.py:626).
+MINISD_UNET = UNetSpec(
+    sample_size=32,
+    in_channels=4,
+    out_channels=4,
+    block_out_channels=(320, 640, 1280, 1280),
+    down_block_types=(
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    ),
+    up_block_types=(
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    ),
+    attention_head_dim=8,
+    norm_eps=1e-5,
+    downsample_padding=1,
+    flip_sin_to_cos=True,
+    freq_shift=0.0,
+    cross_attention_dim=768,
+)
+
+MINISD_SCHEDULER = SchedulerSpec(
+    kind="ddim",
+    beta_start=0.00085,
+    beta_end=0.012,
+    beta_schedule="scaled_linear",
+    clip_sample=False,
+    steps_offset=1,
+)
+
+MINISD_VAE = KLVAESpec()

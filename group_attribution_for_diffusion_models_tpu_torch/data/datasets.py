@@ -1,13 +1,15 @@
 """Numpy-native datasets, as far as the ported slices read them.
 
-Port of the JAX package's ``data/datasets.py`` for CIFAR-10, CelebA-HQ and
-the deterministic ``synthetic*`` datasets (numpy only, so the same arrays
+Port of the JAX package's ``data/datasets.py`` for CIFAR-10, CelebA-HQ,
+Imagenette-layout image folders and the deterministic ``synthetic*`` datasets (numpy only, so the same arrays
 come out of both packages). Every dataset is an `ArrayDataset`: images
 **NHWC float32 in [-1, 1]** plus integer labels. Raw archives are read from
 ``constants.DATASET_DIR`` in their standard binary formats; CelebA-HQ is a
-directory of images with a ``labels.csv`` group table. The other datasets of
-the JAX registry (CIFAR-100 variants, MNIST, image folders) come with their
-slices.
+directory of images with a ``labels.csv`` group table; ``imagenette`` is
+``imagenette2/{train,val}/``, every image at 256x256 in name order, group 0,
+with its file names (the text-to-image trainer's artists come from them).
+The other datasets of the JAX registry (CIFAR-100 variants, MNIST) come with
+their slices.
 """
 
 from __future__ import annotations
@@ -170,8 +172,9 @@ def create_dataset(
     dataset_dir: Optional[str] = None,
 ) -> ArrayDataset:
     """Build a dataset by name: ``synthetic[_<n>x<s>][_c<k>][_mix|_tex|_tpl|
-    _sizes]``, ``cifar`` or ``celeba`` (``<root>/celeba_hq/{train,test}/`` with
-    its ``labels.csv``; reference create_dataset src/datasets.py:398-513)."""
+    _sizes]``, ``cifar``, ``celeba`` (``<root>/celeba_hq/{train,test}/`` with
+    its ``labels.csv``) or ``imagenette`` (``<root>/imagenette2/{train,val}/``);
+    reference create_dataset src/datasets.py:398-513."""
     root = dataset_dir or constants.DATASET_DIR
 
     if dataset_name.startswith("synthetic"):
@@ -208,7 +211,11 @@ def create_dataset(
         return _load_image_dir(img_dir, 256,
                                labels_csv if os.path.exists(labels_csv) else None)
 
+    if dataset_name == "imagenette":
+        split = "train" if train else "val"
+        return _load_image_dir(os.path.join(root, "imagenette2", split), 256)
+
     raise ValueError(
-        f"dataset_name={dataset_name!r}: the port reads 'cifar', 'celeba' and "
-        "'synthetic*' so far"
+        f"dataset_name={dataset_name!r}: the port reads 'cifar', 'celeba', "
+        "'imagenette' and 'synthetic*' so far"
     )

@@ -6,7 +6,9 @@ deterministic DDIM (eta=0) from an initial noise, post-processed to float
 images in [0, 1], NCHW, and `sample_with_trajectory`, which also returns
 the latents each step starts from (Journey TRAK). For latent workloads a
 `decode_fn` (the VQ decoder, latents -> images in [-1, 1]) runs after the
-denoise loop, on the same device, before the post-processing. The JAX package scans the
+denoise loop, on the same device, before the post-processing. A
+conditional U-Net takes its context as `encoder_hidden_states` (B, M, D),
+passed to every step (the text-to-image path). The JAX package scans the
 denoising loop inside one jit; here it is a Python loop of eager calls under
 ``torch.inference_mode``. The initial noise is either passed in
 (`init_noise`, which lets tests feed both packages the same draw) or drawn
@@ -34,10 +36,12 @@ def _ddim(
     num_inference_steps: int,
     trajectory: Optional[List[torch.Tensor]] = None,
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(images in [0, 1], timesteps) of a DDIM run with eta=0, decoded by
     `decode_fn` when given; appends the latent each step starts from to
     `trajectory` when given one."""
+    context = () if encoder_hidden_states is None else (encoder_hidden_states.to(device),)
     if init_noise is None and generator is None:
         raise ValueError("sampling needs init_noise or a generator to draw it")
     ts = inference_timesteps(
@@ -56,7 +60,7 @@ def _ddim(
             if trajectory is not None:
                 trajectory.append(x)
             t_b = torch.full((b,), t, dtype=torch.long, device=device)
-            eps = model(x, t_b)
+            eps = model(x, t_b, *context)
             x = ddim_step(
                 schedule, spec, eps, t_b,
                 torch.full((b,), t_prev, dtype=torch.long, device=device), x,
@@ -78,13 +82,16 @@ def sample_loop(
     init_noise: Optional[torch.Tensor] = None,
     num_inference_steps: int = 100,
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Generate a batch of images of `shape` (B, C, H, W) with DDIM, eta=0.
-    `model(x, t)` predicts the noise; `decode_fn` maps the final latents of
-    `shape` to images in [-1, 1] (the LDM path). Only the initial noise is
-    random, so the result is a function of it."""
+    `model(x, t)` predicts the noise, or `model(x, t, encoder_hidden_states)`
+    when a context is given; `decode_fn` maps the final latents of `shape`
+    to images in [-1, 1] (the LDM path). Only the initial noise is random,
+    so the result is a function of it."""
     images, _ = _ddim(model, schedule, spec, shape, device, generator, init_noise,
-                      num_inference_steps, decode_fn=decode_fn)
+                      num_inference_steps, decode_fn=decode_fn,
+                      encoder_hidden_states=encoder_hidden_states)
     return images
 
 
@@ -119,9 +126,11 @@ def make_sampler(
     device,
     num_inference_steps: int = 100,
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
 ):
     """Sampler factory: (generator=None, init_noise=None) -> images, decoded
-    by `decode_fn` for latent workloads.
+    by `decode_fn` for latent workloads, conditioned on
+    `encoder_hidden_states` for a conditional U-Net.
 
     The schedule is built once, from the spec, on `device` (the reference
     re-instantiates a fresh DDIMScheduler for inference).
@@ -133,7 +142,7 @@ def make_sampler(
         return sample_loop(
             model, schedule, spec, shape, device=device, generator=generator,
             init_noise=init_noise, num_inference_steps=num_inference_steps,
-            decode_fn=decode_fn,
+            decode_fn=decode_fn, encoder_hidden_states=encoder_hidden_states,
         )
 
     return sampler

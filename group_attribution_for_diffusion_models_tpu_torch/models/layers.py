@@ -1,9 +1,10 @@
-"""U-Net building blocks (torch.nn, NCHW): the unconditional subset.
+"""U-Net building blocks (torch.nn, NCHW).
 
 Port of the JAX package's ``models/layers.py``. Module and parameter names
 follow the diffusers v0.24 layout (``norm1``, ``conv1``, ``time_emb_proj``,
-``to_q``, ``to_out.0``, ...) so a diffusers UNet2DModel state dict loads
-as it is. GroupNorm(+SiLU) and attention go through ``ops``: the CUDA
+``to_q``, ``to_out.0``, and for the cross-attention transformer
+``proj_in``, ``transformer_blocks.0.attn2``, ``ff.net.0.proj``, ...) so a
+diffusers UNet2DModel or UNet2DConditionModel state dict loads as it is. GroupNorm(+SiLU) and attention go through ``ops``: the CUDA
 kernels on the card, their plain versions on the CPU. Convolutions and the
 q/k/v/out projections are plain ``F.conv2d``/``F.linear``, as the JAX package
 leaves them to XLA.
@@ -190,3 +191,98 @@ class Upsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class GEGLU(nn.Module):
+    """Gated GELU projection (diffusers ``GEGLU``, parameters ``proj``): the
+    tanh-approximated GELU of flax's ``nn.gelu``, as the JAX module uses."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """GEGLU to 4x the width, then back (diffusers ``FeedForward``: ``net.0``
+    and ``net.2``; ``net.1`` is its dropout, 0 here)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * 4), nn.Identity(), nn.Linear(dim * 4, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention of (B, N, C) tokens over a (B, M, context_dim)
+    context, or over themselves without one. `heads` is the head count (the
+    UNet2DConditionModel reading of ``attention_head_dim``). to_q/to_k/to_v
+    have no bias, to_out has one; all four are LoRADense, so LoRA attaches
+    to each projection with its own rank."""
+
+    def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None):
+        super().__init__()
+        context_dim = context_dim or dim
+        self.heads = heads
+        self.to_q = LoRADense(dim, dim, bias=False)
+        self.to_k = LoRADense(context_dim, dim, bias=False)
+        self.to_v = LoRADense(context_dim, dim, bias=False)
+        self.to_out = nn.ModuleList([LoRADense(dim, dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        context = x if context is None else context
+        b, n, c = x.shape
+        m, heads = context.shape[1], self.heads
+        q = self.to_q(x).reshape(b, n, heads, c // heads)
+        k = self.to_k(context).reshape(b, m, heads, c // heads)
+        v = self.to_v(context).reshape(b, m, heads, c // heads)
+        return self.to_out[0](dot_product_attention(q, k, v).reshape(b, n, c))
+
+
+class TransformerBlock(nn.Module):
+    """BasicTransformerBlock: pre-LN self-attention, cross-attention over the
+    context, GEGLU feed-forward, each with a residual. LayerNorm eps is
+    flax's default 1e-6, as the JAX block uses."""
+
+    def __init__(self, dim: int, heads: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn1 = CrossAttention(dim, heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn2 = CrossAttention(dim, heads, context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """Transformer2DModel: GroupNorm (no SiLU), 1x1 proj_in, `depth`
+    transformer blocks over the HxW tokens (row-major), 1x1 proj_out, and a
+    residual."""
+
+    def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1,
+                 groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.norm = GroupNormSiLU(channels, groups, eps, silu=False)
+        self.proj_in = Conv1x1(channels, channels)
+        self.transformer_blocks = nn.ModuleList(
+            [TransformerBlock(channels, heads, context_dim) for _ in range(depth)])
+        self.proj_out = Conv1x1(channels, channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        y = self.proj_in(self.norm(x)).reshape(b, c, h * w).transpose(1, 2)
+        for block in self.transformer_blocks:
+            y = block(y, context)
+        return x + self.proj_out(y.transpose(1, 2).reshape(b, c, h, w))

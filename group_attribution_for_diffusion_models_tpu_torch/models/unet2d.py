@@ -1,9 +1,13 @@
-"""UNet2D noise-prediction model (torch.nn, NCHW), unconditional specs.
+"""UNet2D noise-prediction model (torch.nn, NCHW).
 
-Port of the JAX package's ``models/unet2d.py`` for the unconditional
-UNet2DModel configs (CIFAR, MNIST and the synthetic specs); cross-attention
-blocks come with a later slice. ``remat=True`` recomputes each resnet and
-attention block in the backward (``torch.utils.checkpoint``), as the JAX
+Port of the JAX package's ``models/unet2d.py``: the unconditional
+UNet2DModel configs (CIFAR, MNIST, CelebA and the synthetic specs) and the
+cross-attention UNet2DConditionModel ones (miniSD, Imagenette), chosen by the
+block-type strings of the spec. A conditional spec puts a
+`SpatialTransformer` after each resnet of its ``CrossAttn*`` blocks and in
+the mid block, with ``attention_head_dim or 8`` heads, attending over the
+``encoder_hidden_states`` passed to `forward`. ``remat=True`` recomputes
+each resnet, attention and transformer block in the backward (``torch.utils.checkpoint``), as the JAX
 ``remat=True`` does; ``remat_policy`` is the JAX model's selective policy,
 built on ``create_selective_checkpoint_contexts``: ``full`` (or None) saves
 nothing a block computes, ``convs`` saves the outputs of its 3x3
@@ -39,13 +43,14 @@ from .layers import (
     GroupNormSiLU,
     ResnetBlock,
     SelfAttention2D,
+    SpatialTransformer,
     TimestepEmbedding,
     Upsample,
     sinusoidal_embedding,
 )
 
-_DOWN_TYPES = {"DownBlock2D", "AttnDownBlock2D"}
-_UP_TYPES = {"UpBlock2D", "AttnUpBlock2D"}
+_DOWN_TYPES = {"DownBlock2D", "AttnDownBlock2D", "CrossAttnDownBlock2D"}
+_UP_TYPES = {"UpBlock2D", "AttnUpBlock2D", "CrossAttnUpBlock2D"}
 REMAT_POLICIES = ("full", "convs", "convs_dots")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -72,7 +77,8 @@ def _remat_context_fn(policy: Optional[str]):
 
 
 class UNet2D(nn.Module):
-    """Noise-prediction U-Net. Input/output NCHW; timesteps shape (B,).
+    """Noise-prediction U-Net. Input/output NCHW; timesteps shape (B,);
+    for a conditional spec, encoder_hidden_states (B, M, cross_attention_dim).
 
     The forward runs in `compute_dtype` when it is set (parameters stay in
     their own dtype, as the JAX model's ``dtype`` field keeps them f32), else
@@ -83,10 +89,6 @@ class UNet2D(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None,
                  remat_policy: Optional[str] = None):
         super().__init__()
-        if spec.conditional:
-            raise NotImplementedError(
-                "cross-attention U-Nets are not ported yet (unconditional specs only)"
-            )
         self.spec = spec
         self.remat = remat
         self._remat_context = _remat_context_fn(remat_policy)
@@ -106,6 +108,11 @@ class UNet2D(nn.Module):
         def attention(ch: int) -> SelfAttention2D:
             return SelfAttention2D(ch, spec.attention_head_dim, groups, eps)
 
+        def cross_attention(ch: int) -> SpatialTransformer:
+            # UNet2DConditionModel convention: attention_head_dim is the head count.
+            return SpatialTransformer(ch, spec.attention_head_dim or 8,
+                                      spec.cross_attention_dim, groups=groups, eps=eps)
+
         self.conv_in = nn.Conv2d(spec.in_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], temb_ch)
 
@@ -124,6 +131,8 @@ class UNet2D(nn.Module):
                 ch = out_ch
                 if block_type == "AttnDownBlock2D":
                     block.attentions.append(attention(ch))
+                elif block_type == "CrossAttnDownBlock2D":
+                    block.attentions.append(cross_attention(ch))
                 skip_ch.append(ch)
             if i < len(spec.down_block_types) - 1:
                 block.downsamplers = nn.ModuleList(
@@ -137,9 +146,11 @@ class UNet2D(nn.Module):
             [resnet("mid_res_0", ch, boc[-1]), resnet("mid_res_1", boc[-1], boc[-1])]
         )
         ch = boc[-1]
-        self.mid_block.attentions = nn.ModuleList(
-            [attention(ch)] if spec.add_attention else []
-        )
+        if spec.conditional:
+            mid_attention = [cross_attention(ch)]
+        else:
+            mid_attention = [attention(ch)] if spec.add_attention else []
+        self.mid_block.attentions = nn.ModuleList(mid_attention)
 
         self.up_blocks = nn.ModuleList()
         for i, block_type in enumerate(spec.up_block_types):
@@ -154,6 +165,8 @@ class UNet2D(nn.Module):
                 ch = out_ch
                 if block_type == "AttnUpBlock2D":
                     block.attentions.append(attention(ch))
+                elif block_type == "CrossAttnUpBlock2D":
+                    block.attentions.append(cross_attention(ch))
             if i < len(spec.up_block_types) - 1:
                 block.upsamplers = nn.ModuleList([Upsample(ch, ch)])
             self.up_blocks.append(block)
@@ -171,16 +184,28 @@ class UNet2D(nn.Module):
                               context_fn=self._remat_context)
         return block(*args)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-        if self.compute_dtype is None:
-            return self._forward(x, timesteps)
-        with torch.autocast(x.device.type, dtype=self.compute_dtype):
-            return self._forward(x, timesteps)
+    def _attend(self, attention: nn.Module, h: torch.Tensor,
+                context: Optional[torch.Tensor]) -> torch.Tensor:
+        if isinstance(attention, SpatialTransformer):
+            if context is None:
+                raise ValueError("a conditional U-Net needs encoder_hidden_states")
+            return self._run(attention, h, context)
+        return self._run(attention, h)
 
-    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return self._forward(x, timesteps, encoder_hidden_states)
+        with torch.autocast(x.device.type, dtype=self.compute_dtype):
+            return self._forward(x, timesteps, encoder_hidden_states)
+
+    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                 context: Optional[torch.Tensor]) -> torch.Tensor:
         spec = self.spec
-        run = self._run
+        run, attend = self._run, self._attend
         dtype = self.conv_in.weight.dtype
+        if context is not None:
+            context = context.to(dtype)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(x.shape[0])
         temb = sinusoidal_embedding(
@@ -195,7 +220,7 @@ class UNet2D(nn.Module):
             for j, res in enumerate(block.resnets):
                 h = run(res, h, temb)
                 if len(block.attentions):
-                    h = run(block.attentions[j], h)
+                    h = attend(block.attentions[j], h, context)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
@@ -203,14 +228,14 @@ class UNet2D(nn.Module):
 
         h = run(self.mid_block.resnets[0], h, temb)
         if len(self.mid_block.attentions):
-            h = run(self.mid_block.attentions[0], h)
+            h = attend(self.mid_block.attentions[0], h, context)
         h = run(self.mid_block.resnets[1], h, temb)
 
         for block in self.up_blocks:
             for j, res in enumerate(block.resnets):
                 h = run(res, torch.cat([h, skips.pop()], dim=1), temb)
                 if len(block.attentions):
-                    h = run(block.attentions[j], h)
+                    h = attend(block.attentions[j], h, context)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
 
@@ -219,10 +244,15 @@ class UNet2D(nn.Module):
 
 def build_unet(spec: UNetSpec, seed: int, remat: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
-               remat_policy: Optional[str] = None) -> UNet2D:
+               remat_policy: Optional[str] = None, device="cpu") -> UNet2D:
     """A UNet2D with torch's default initialisation drawn from `seed`, without
-    touching the caller's global random state."""
-    with torch.random.fork_rng(devices=[]):
+    touching the caller's global random state. With a CUDA `device` the
+    parameters are made and drawn there, from the card's generator (other
+    values than the CPU's for one seed; miniSD's 860M parameters take
+    seconds to draw on the CPU)."""
+    device = torch.device(device)
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(seed)
-        return UNet2D(spec, remat=remat, compute_dtype=compute_dtype,
-                      remat_policy=remat_policy)
+        with device:
+            return UNet2D(spec, remat=remat, compute_dtype=compute_dtype,
+                          remat_policy=remat_policy)

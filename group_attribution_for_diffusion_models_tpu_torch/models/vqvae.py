@@ -1,4 +1,5 @@
-"""VQ-VAE (diffusers VQModel) for latent diffusion (torch.nn, NCHW).
+"""VQ-VAE (diffusers VQModel) and KL VAE (diffusers AutoencoderKL) for
+latent diffusion (torch.nn, NCHW).
 
 Port of the JAX package's ``models/vqvae.py``. The CelebA-HQ LDM workload
 trains its U-Net in the continuous latent space of a frozen VQ-VAE: 256x256x3
@@ -22,6 +23,15 @@ upsamples by nearest x2; the codebook lookup is one f32 product and an argmin
 a seeded random init of the JAX init's distributions: flax's lecun_normal
 kernels, zero biases, unit GroupNorm scales and a U[0, 1) codebook (not
 PRNGKey(7)'s values, which torch cannot draw).
+
+`AutoencoderKL` is the SD 1.x VAE of the text-to-image tier (`KLVAESpec`:
+four levels (128, 256, 512, 512), f=8, 4 latent channels, scaling 0.18215):
+the same encoder and decoder stacks, the encoder emitting mean and logvar
+(2 x 4 channels) through ``quant_conv``, the decoder reading
+``post_quant_conv``; its mid attention is one head of 512 at 32x32 (the
+plain route again). `models.convert_diffusers.kl_vae_params_{from,to}_jax`
+carry the JAX tree across; `load_sd_vae` draws the random tower from
+SD_VAE_SEED on the device it runs on.
 """
 
 from __future__ import annotations
@@ -34,12 +44,13 @@ import torch
 from torch import nn
 
 from ..attributions.global_scores.inception_v3 import lecun_init_
-from ..config.registry import VQVAESpec
+from ..config.registry import KLVAESpec, VQVAESpec
 from ..utils.device import resolve_device
 from .layers import Downsample, GroupNormSiLU, ResnetBlock, SelfAttention2D, Upsample
 
 VQ_EPS = 1e-6  # every GroupNorm of the VQ-VAE, as the JAX modules' default
 SHARED_TOWER_SEED = 7  # the random tower every CLI shares (the JAX CLIs' PRNGKey(7))
+SD_VAE_SEED = 2  # the random KL VAE of the text-to-image CLIs (the JAX PRNGKey(2))
 
 
 def _mid_block(ch: int, groups: int) -> nn.Module:
@@ -219,10 +230,12 @@ def make_vq_decode_fn(spec: VQVAESpec, weights_path: Optional[str] = None,
     return decode_fn
 
 
-def precompute_latents(vqvae: VQVAE, images: np.ndarray, batch_size: int = 64,
+def precompute_latents(vqvae: nn.Module, images: np.ndarray, batch_size: int = 64,
                        cache_path: Optional[str] = None) -> np.ndarray:
-    """Encode the whole dataset once: (N, H, W, C) float32 images in [-1, 1]
-    -> (N, h, w, lc) float32 latents, the JAX layout, cached at `cache_path`
+    """Encode the whole dataset once with `vqvae.encode` (a VQVAE's
+    continuous latents, or an AutoencoderKL's scaled means): (N, H, W, C)
+    float32 images in [-1, 1] -> (N, h, w, lc) float32 latents, the JAX
+    layout, cached at `cache_path`
     (read back when it exists, from either package) and aligned with the
     dataset's order."""
     if cache_path is not None and os.path.exists(cache_path):
@@ -239,3 +252,67 @@ def precompute_latents(vqvae: VQVAE, images: np.ndarray, batch_size: int = 64,
         os.makedirs(os.path.dirname(os.path.abspath(cache_path)), exist_ok=True)
         np.save(cache_path, latents)
     return latents
+
+
+class AutoencoderKL(nn.Module):
+    """KL VAE (SD 1.x): the encoder emits (mean, logvar); decode is
+    deterministic. Images (B, 3, H, W) in [-1, 1] <-> latents (B, 4, H/8, W/8)
+    scaled by `spec.scaling_factor`."""
+
+    def __init__(self, spec: KLVAESpec):
+        super().__init__()
+        self.spec = spec
+        lc = spec.latent_channels
+        common = dict(sample_size=spec.sample_size, in_channels=spec.in_channels,
+                      out_channels=spec.out_channels,
+                      block_out_channels=tuple(spec.block_out_channels),
+                      layers_per_block=spec.layers_per_block,
+                      norm_num_groups=spec.norm_num_groups)
+        self.encoder = Encoder(VQVAESpec(latent_channels=2 * lc, **common))  # mean + logvar
+        self.decoder = Decoder(VQVAESpec(latent_channels=lc, **common))
+        self.quant_conv = nn.Conv2d(2 * lc, 2 * lc, 1)
+        self.post_quant_conv = nn.Conv2d(lc, lc, 1)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, logvar clipped to [-30, 20]), unscaled."""
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The mean latents, or with a `generator` a sample mean + std * eps,
+        times the scaling factor."""
+        mean, logvar = self.encode_moments(x)
+        if generator is not None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                              dtype=mean.dtype)
+            mean = mean + torch.exp(0.5 * logvar) * eps
+        return mean * self.spec.scaling_factor
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.post_quant_conv(z / self.spec.scaling_factor))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
+
+
+def load_sd_vae(spec: KLVAESpec, weights_path: Optional[str] = None, quiet: bool = False,
+                device="cuda") -> AutoencoderKL:
+    """The frozen SD VAE in eval mode on `device`: the JAX AutoencoderKL
+    param tree in `weights_path` (``np.save`` of a dict), else the random
+    init from SD_VAE_SEED, drawn on `device`: one tower for every consumer
+    on that device (trainer latents, sampling), as the JAX package seeds
+    its own."""
+    from .convert_diffusers import kl_vae_params_from_jax
+
+    device = resolve_device(str(device))
+    with device:
+        model = AutoencoderKL(spec)
+    if weights_path:
+        tree = np.load(weights_path, allow_pickle=True).item()
+        model.load_state_dict(kl_vae_params_from_jax(tree))
+    else:
+        lecun_init_(model, torch.Generator(device=device).manual_seed(SD_VAE_SEED))
+        if not quiet:
+            print("WARNING: SD VAE running random-init (no weights); "
+                  "outputs are not reference-comparable")
+    return model.eval().requires_grad_(False)

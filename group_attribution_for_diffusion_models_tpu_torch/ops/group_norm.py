@@ -268,8 +268,13 @@ class _GroupNormSiLU(torch.autograd.Function):
         x, gamma, beta, mean, rstd = ctx.saved_tensors
         dx, part = _GroupNormSiLUBackward.apply(
             x, dout.to(x.dtype), gamma, beta, mean, rstd, ctx.groups, ctx.silu)
+        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+            # A frozen gamma/beta (LoRA training): the kernel has written the
+            # partials, but nothing sums them and no gradient is returned.
+            return dx, None, None, None, None, None, None
         # The (2, B, C) partials summed over each gamma row's samples in one
         # reduction: under vmap, over each vmapped sample's own batch.
+        group_norm_silu.affine_sums += 1
         rows = gamma.shape[0] if gamma.ndim == 2 else 1
         sums = part.unflatten(1, (rows, -1)).sum(dim=2)
         return (dx, sums[0].reshape(gamma.shape).to(gamma.dtype),
@@ -326,5 +331,10 @@ def group_norm_silu(
     with SiLU; statistics in f32 (torch GroupNorm semantics). Differentiable
     in x, gamma and beta, and transformable by torch.func (`vmap` over x,
     gamma and beta, `grad`). gamma and beta are (C,), or (R, C) with one row
-    for each of R equal runs of samples."""
+    for each of R equal runs of samples. A gamma and beta that need no
+    gradient get none: their partials are not summed (`affine_sums` counts
+    the reductions made)."""
     return _GroupNormSiLU.apply(x, gamma, beta, groups, eps, silu, out_dtype or x.dtype)[0]
+
+
+group_norm_silu.affine_sums = 0

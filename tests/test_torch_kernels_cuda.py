@@ -224,6 +224,31 @@ def test_attention_kernels_at_the_celeba_unet_shapes(cuda, dtype, b, s, h):
     assert all(torch.equal(a, w) for a, w in zip(got, attention_bwd_kernel(q, k, v, do)))
 
 
+# miniSD's attention, 8 heads at widths 320, 640 and 1280 (head dims 40, 80
+# and 160: the D <= 64, <= 128 and <= 256 templates), against a 77-token
+# text context: every key tile partial, Skv > Sq in the 4x4 mid block.
+@pytest.mark.parametrize("b,sq,skv,h,d", [(2, 1024, 77, 8, 40), (2, 256, 77, 8, 80),
+                                          (2, 64, 77, 8, 160), (2, 16, 77, 8, 160)])
+def test_attention_kernels_at_the_minisd_cross_attention_shapes(cuda, b, sq, skv, h, d):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=cuda)
+                   for s in (sq, skv, skv, sq))
+    atol, rtol = TOL[torch.float32]
+    out = attention_kernel(q, k, v)
+    torch.testing.assert_close(out, attention_plain(q, k, v), atol=atol, rtol=rtol)
+    assert torch.equal(out, attention_kernel(q, k, v))
+    dq, lse, delta = attention_bwd_dq(q, k, v, do)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta)
+    want_dq, want_lse, want_delta = attention_bwd_dq_plain(q, k, v, do)
+    want_dk, want_dv = attention_bwd_dkv_plain(q, k, v, do, want_lse, want_delta)
+    for a, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        torch.testing.assert_close(a, w, atol=atol, rtol=rtol)
+    for a, w in ((lse, want_lse), (delta, want_delta)):
+        torch.testing.assert_close(a, w, atol=5e-5, rtol=1e-5)
+    assert dk.shape == (b, skv, h, d)
+    assert all(torch.equal(a, w) for a, w in zip((dq, dk, dv), attention_bwd_kernel(q, k, v, do)))
+
+
 def test_attention_at_head_dim_512_takes_the_plain_route(cuda):
     """The VQ-VAE's mid attention (one head of 512, which the kernels do not
     take) runs the plain f32 version on the card in both directions, counted
@@ -381,6 +406,31 @@ def test_group_norm_kernels_read_tensors_off_16_bytes(cuda):
     assert x.data_ptr() % 16
     _check_gn_both(x, torch.randn(64, device=cuda) + 1, torch.randn(64, device=cuda), dy, 32,
                    True, torch.float32)
+
+
+# A transformer's GroupNorm in miniSD (no SiLU, eps 1e-5) at 32x32, width 320.
+def test_group_norm_kernels_without_silu_at_the_minisd_transformer_norm(cuda):
+    x, gamma, beta, dy = _gn_case(cuda, (2, 320, 32, 32), torch.float32, 13)
+    _check_gn_both(x, gamma, beta, dy, 32, False, torch.float32, eps=1e-5)
+
+
+def test_a_frozen_group_norm_returns_no_gamma_beta_gradient(cuda):
+    """A gamma/beta that need no gradient (LoRA training's frozen base) get
+    none, and their partials are not summed; dx still comes from the kernel."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(2, 320, 32, 32, generator=g, device=cuda).requires_grad_(True)
+    gamma = torch.randn(320, generator=g, device=cuda) + 1
+    beta = torch.randn(320, generator=g, device=cuda)
+    y = group_norm_silu(x, gamma, beta, groups=32, eps=1e-5, silu=False)
+    before = (group_norm_bwd_kernel.launches, group_norm_silu.affine_sums)
+    y.square().sum().backward()
+    assert (group_norm_bwd_kernel.launches, group_norm_silu.affine_sums) == (before[0] + 1,
+                                                                             before[1])
+    assert gamma.grad is None and beta.grad is None
+    xc = x.detach().cpu().requires_grad_(True)
+    group_norm_silu(xc, gamma.cpu(), beta.cpu(), groups=32, eps=1e-5,
+                    silu=False).square().sum().backward()
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, atol=5e-5, rtol=1e-5)
 
 
 def test_autograd_functions_on_the_card_launch_the_backward_kernels(cuda):
