@@ -113,13 +113,37 @@ Phases (one line each; any failure raises and exits non-zero):
     and plain times; the plain route at the KL mid attention timed. Then
     ``cli.train_text_to_image_lora.main`` (2 datamodel members x 3 steps at
     batch 64, the base frozen: no GroupNorm gamma/beta reduction; the
-    latents encoded once), ``cli.prune_lora.main`` (ratio 0.5), a 3-step
-    ``--method pruned_ft`` of the pruned LoRA (the latents' cache reused),
+    latents encoded once and cached with a tag), ``cli.prune_lora.main``
+    (ratio 0.5), a 3-step ``--method pruned_ft`` of the pruned LoRA on 2
+    shapley subsets (the latents' cache reused),
     ``cli.generate_samples_tti.main`` (16 images x 50 DDIM steps, and a
     second call that resumes with nothing to do), each with its launches and
     plain-route calls reckoned from the specs; and a card-vs-CPU reference
     at batch 1 of 3 DDIM steps of the LoRA'd base with a CLIP context, the
-    text tower on 2 prompts, and the KL encode and decode.
+    text tower on 2 prompts, the KL encode and decode, and the per-sample
+    LoRA gradients of 2 samples with their own contexts at one timestep
+    (vmap(grad), one launch of each kernel); the cross-attention of each
+    level under vmap(grad) at batch 16 with a 77-token context for each
+    sample, against the plain versions and timed. The CLIP ViT-L/14 vision tower
+    and the aesthetic head card vs CPU at batch 2, the tower timed at batch
+    32 beside its FLOP bound. Then the scoring loop: 4 shapley members and
+    the full anchor trained (3 steps at batch 64), a null anchor (the LoRA's
+    up factors zeroed); every member's mask as the LDS CLIs redraw it
+    against the trainer's kept_units; ``cli.compute_model_behaviors.main``
+    timed once (16 paired samples x 50 DDIM steps, the KL decode, the CLIP
+    tower, 3 loss draws), then on each of the 8 members and both anchors (2
+    samples x 5 steps), and once more, skipped by the duplicate guard;
+    ``cli.shapley_lds.main`` with the measured anchors (the efficiency
+    constraint on the saved attributions) and ``cli.shapley_convergence.
+    main`` (the sparse fine-tunes against the retrained members);
+    ``cli.grad_features_tti.main`` (LoRA-only per-sample gradients under a
+    context per sample: the train source on 32 images in batches of 16 x 10
+    timesteps, timed with its gradients/JL split, then every image at one
+    timestep; generated, 16 samples x 10 steps; generated_journey), the
+    latents read from the trainer's tagged cache, ``cli.traks.main``;
+    ``cli.similarity_baselines.main`` pixel, clip and aesthetic on the
+    stand-in and the 16 generated images; ``cli.baseline_lds.main`` over
+    the TRAK and similarity attributions.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -180,6 +204,7 @@ JL_SHAPES = [  # (B, D, P), each held against the plain version
     (32, 393_216, 4096),     # TRAK probe mode (k = 64), one batch
     (32, 1_579_008, 4096),   # TRAK attn_full mode, one batch
     (32, 35_746_307, 4096),  # TRAK full mode: the CIFAR U-Net's gradients, one batch
+    (16, 51_019_776, 4096),  # grad_features_tti: miniSD's rank-256 LoRA gradients, one batch
 ]
 JL_MAIN = JL_SHAPES[-1]
 JL_BF16_SHAPES = [(32, 1 << 20, 4096)]  # bf16 G (one bf16 piece), held as the f32 rows
@@ -297,6 +322,27 @@ KL_DECODE_BATCH = 8  # the KL decoder's GroupNorms, held at this batch
 # latents and the decoder's images in [0, 1], as the VQ-VAE's.
 TTI_LATENT_ATOL, TTI_TEXT_ATOL, TTI_ENCODE_ATOL, TTI_DECODE_ATOL = 2e-3, 1e-4, 1e-3, 2e-3
 TTI_REF_STEPS = 3
+# Scoring the tier (cut to size: sample counts and steps, never widths). Shapley
+# seeds 0..3 keep 9, 6, 6 and 9 of the 16 artists (96 images or more), so those
+# members train at batch 64 too; the sparse fine-tunes take shapley seeds 0 and 1.
+TTI_SHAPLEY, TTI_FT_MEMBERS = 4, 2
+# compute_model_behaviors: one timed call (reference LoRA against a subset LoRA),
+# then a smaller call for every member and each anchor.
+TTI_SCORE_SAMPLES, TTI_SCORE_STEPS, TTI_SCORE_NOISES = 16, 50, 3
+TTI_MEMBER_SAMPLES, TTI_MEMBER_STEPS, TTI_MEMBER_NOISES = 2, 5, 1
+# grad_features_tti: the train source timed on the first TTI_TRAK_EXAMPLES images
+# (2 artists: the stand-in is in name order), then on every image at one timestep,
+# so that traks' attributions cover the 16 artists for baseline_lds.
+TTI_TRAK_EXAMPLES, TTI_TRAK_BATCH, TTI_TRAK_TIMESTEPS, TTI_TRAK_PROJ = 32, 16, 10, 4096
+TTI_TRAK_SAMPLES, TTI_TRAK_SAMPLE_STEPS = 16, 10
+# Per-sample LoRA gradients, card vs CPU (2 samples, each with its own context,
+# one timestep): TRAIN_STEP_RTOL of each sample's largest entry. The CLIP vision
+# tower (ViT-L/14, 24 layers of width 1024), card vs CPU at batch 2: TOWER_TOL
+# of max(1, max |CPU|); the aesthetic head on the same embeddings within 1e-5.
+TTI_CLIP_CHECK, TTI_CLIP_BATCH, TTI_HEAD_ATOL = 2, 32, 1e-5
+# The cross-attentions as grad_features_tti runs them: vmap(grad) over a batch of
+# TTI_TRAK_BATCH samples, each with its own 77-token context, (Sq, H, D).
+TTI_VMAP_ATTN = [(1024, 8, 40), (256, 8, 80), (64, 8, 160), (16, 8, 160)]
 
 
 def log(msg: str) -> None:
@@ -1513,9 +1559,11 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
     on the ArtBench-style stand-in: the kernels at its shapes, then its main
     paths between counter resets and reads, launches reckoned from the specs:
     train_text_to_image_lora (2 members, latents encoded once), prune_lora,
-    a sparse fine-tune of the pruned LoRA (the cache reused),
+    sparse fine-tunes of the pruned LoRA (the cache reused),
     generate_samples_tti (and its resume); then a card-vs-CPU reference of
-    sampling, the text tower and the KL VAE. Returns the summed launches."""
+    sampling, the text tower, the KL VAE and per-sample LoRA gradients; the
+    CLIP vision tower and aesthetic head; and the scoring loop
+    (`check_tti_scoring`). Returns the summed launches."""
     import torch.nn.functional as F
     from PIL import Image
     from torch.func import functional_call
@@ -1650,18 +1698,23 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
     if not (abs(float(info[2]) - TTI_PRUNE_RATIO) < 1e-3 and len(ranks) > 1):
         raise AssertionError(f"prune_lora: ratio {info[2]}, ranks {ranks}")
 
+    # Sparse fine-tuning of the pruned LoRA on shapley subsets, whose scores
+    # shapley_convergence holds against the retrained members'.
     f_out, f_wall, counts, routes, peak = timed(train_text_to_image_lora.main, common + [
-        "--num_seeds", "1", "--method", "pruned_ft", "--lora_dir", pruned])
+        "--num_seeds", str(TTI_FT_MEMBERS), "--removal_dist", "shapley", "--method",
+        "pruned_ft", "--lora_dir", pruned])
     f_step = f_out["step_seconds"]
-    log(f"[tti] train_text_to_image_lora --method pruned_ft --lora_dir <pruned> 1 member x "
-        f"{TTI_STEPS} steps at batch {f_out['batch']} ({f_out['lora_params']} LoRA params): "
-        f"latents from the cache={f_out['latents_cached']}, training {f_out['train_seconds']:.3f} "
-        f"s (step seconds {[round(x, 4) for x in f_step]}), call {f_wall:.3f} s, peak "
-        f"{peak:.2f} GiB, loss {f_out['losses']}")
+    log(f"[tti] train_text_to_image_lora --method pruned_ft --lora_dir <pruned> "
+        f"{TTI_FT_MEMBERS} shapley members x {TTI_STEPS} steps at batch {f_out['batch']} "
+        f"({f_out['lora_params']} LoRA params): latents from the cache="
+        f"{f_out['latents_cached']}, training {f_out['train_seconds']:.3f} s (step seconds "
+        f"{[round(x, 4) for x in f_step]}, {f_step[-1] / TTI_FT_MEMBERS:.4f} s a member-step), "
+        f"call {f_wall:.3f} s, peak {peak:.2f} GiB, losses {f_out['losses']}")
+    ft_steps = TTI_FT_MEMBERS * TTI_STEPS
     expect("pruned_ft", counts, routes,
-           tti_counts(n_attn, n_gn, n_gn_bwd, TTI_STEPS, TTI_STEPS), no_route, phase="tti")
-    trained = load_lora_npz(f_out["lora_paths"][0])
-    if not (f_out["latents_cached"] and lora_ranks(trained) == p["ranks"]
+           tti_counts(n_attn, n_gn, n_gn_bwd, ft_steps, ft_steps), no_route, phase="tti")
+    if not (f_out["latents_cached"] and f_out["batch"] == TTI_BATCH
+            and all(lora_ranks(load_lora_npz(path)) == p["ranks"] for path in f_out["lora_paths"])
             and all(math.isfinite(x) for x in f_out["losses"])
             and ops.group_norm_silu.affine_sums == sums):
         raise AssertionError(f"pruned_ft: {f_out}")
@@ -1737,8 +1790,418 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
             and enc_err <= TTI_ENCODE_ATOL and dec_err <= TTI_DECODE_ATOL
             and torch.isfinite(got[str(dev)]).all()):
         raise AssertionError("the text-to-image towers on the card disagree with the CPU")
+    check_lora_gradients(torch, np, ops, models, r["lora_paths"][0], e_cpu, dev,
+                         tti_counts(n_attn, n_gn, n_gn_bwd, 1, 1))
     del models, base, text_card, vae_card
     torch.cuda.empty_cache()
+    check_vmapped_attention(torch, F, ops, dev, card)
+    check_clip_vision(torch, np, dev, card)
+    shape_counts = dict(n_attn=n_attn, n_gn=n_gn, n_gn_bwd=n_gn_bwd, n_dec=n_dec)
+    return add_counts(total, check_tti_scoring(torch, np, ops, outdir, card, common, timed,
+                                               shape_counts, r))
+
+
+
+def check_lora_gradients(torch, np, ops, models: dict, lora_path: str, contexts, dev,
+                         want_counts: dict) -> None:
+    """Per-sample LoRA gradients of the full-width miniSD U-Net (the LoRA
+    factors alone, the base fixed) for 2 samples, each with its own text
+    context, at one timestep, through vmap(grad): card against CPU (the
+    kernels under their vmap rules against the plain versions), one launch
+    of each kernel for both samples, no GroupNorm gamma/beta reduction; then
+    one timestep at grad_features_tti's batch timed by events and by the
+    profiler's device time."""
+    from group_attribution_for_diffusion_models_tpu_torch.attributions.methods.trak import (
+        PerSampleGradients)
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import (
+        add_noise, make_schedule)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import (
+        MINISD_SCHEDULER)
+    from group_attribution_for_diffusion_models_tpu_torch.models.lora import load_lora_npz
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 32, 32)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((2, 4, 32, 32)).astype(np.float32))
+    t = torch.tensor([400, 400])
+    got = {}
+    for device, model in models.items():
+        grads = PerSampleGradients(model, lora=load_lora_npz(lora_path, device),
+                                   conditional=True)
+        acc = torch.zeros((2, grads.dim), device=device)
+        schedule = make_schedule(MINISD_SCHEDULER, device)
+        xx, nn_, tt = x.to(device), noise.to(device), t.to(device)
+        sums = ops.group_norm_silu.affine_sums
+        reset_counts(ops)
+        grads.accumulate(acc, add_noise(schedule, xx, nn_, tt), tt, nn_,
+                         contexts.to(device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        got[device] = acc.cpu()
+    want, card = got["cpu"], got[str(dev)]
+    err = ((card - want).abs().amax(dim=1) / want.abs().amax(dim=1)).max().item()
+    affine = ops.group_norm_silu.affine_sums - sums
+    log(f"[tti] per-sample LoRA gradients ({card.shape[1]} coordinates, JAX leaf order) of "
+        f"2 samples with their own contexts, one timestep, card vs CPU (f32, TF32 off): "
+        f"max |dg| / max |g| {err:.3g} (tol {TRAIN_STEP_RTOL}); card launches {counts} "
+        f"(expected {want_counts}); GroupNorm affine reductions {affine}")
+    if not (err <= TRAIN_STEP_RTOL and counts == want_counts and affine == 0):
+        raise AssertionError("per-sample LoRA gradients on the card disagree with the CPU")
+    # One timestep of grad_features_tti's batch on the card: event time of the
+    # vmap(grad) call against its kernels' device time (the device's idle share).
+    model = models[str(dev)]
+    grads = PerSampleGradients(model, lora=load_lora_npz(lora_path, dev), conditional=True)
+    g = torch.Generator(device=dev).manual_seed(22)
+    xb, nb = (torch.randn(TTI_TRAK_BATCH, 4, 32, 32, generator=g, device=dev) for _ in range(2))
+    tb = torch.full((TTI_TRAK_BATCH,), 400, device=dev)
+    ctx = contexts.to(dev)[torch.arange(TTI_TRAK_BATCH, device=dev) % len(contexts)]
+    acc = torch.zeros((TTI_TRAK_BATCH, grads.dim), device=dev)
+
+    def step():
+        grads.accumulate(acc, xb, tb, nb, ctx)
+
+    ev, dv = cuda_ms(torch, step, iters=3), device_ms(torch, step, iters=2)
+    log(f"[tti] one timestep of per-sample LoRA gradients at batch {TTI_TRAK_BATCH} (vmap(grad), "
+        f"a context each) on the card: {ev:.1f} ms event, {dv:.1f} ms device, idle share "
+        f"{1 - dv / ev:.3f}")
+    del grads, acc
+
+
+
+def check_vmapped_attention(torch, F, ops, dev, card: str) -> None:
+    """The cross-attention under vmap(grad) with a context (K, V) of 77
+    tokens for each of TTI_TRAK_BATCH samples, at miniSD's four levels: the
+    vmap rules fold the samples into one forward and one launch of each
+    backward pass; the gradients against the plain versions on the folded
+    tensors (TOL); the vmap(grad) call event-timed and its kernels' device
+    time by the profiler, beside the plain forward and backward on the
+    folded tensors, SDPA's forward and autograd backward, and the bound
+    (4 + 10 units of B*H*Sq*Skv*D FLOPs at the tensor cores' rate, or q, k,
+    v, o, do, dq, dk, dv once)."""
+    from torch.func import grad, vmap
+
+    b = TTI_TRAK_BATCH
+    for sq, h, d in TTI_VMAP_ATTN:
+        g = torch.Generator(device=dev).manual_seed(4)
+        q, w = (torch.randn(b, 1, sq, h, d, generator=g, device=dev) for _ in range(2))
+        k, v = (torch.randn(b, 1, 77, h, d, generator=g, device=dev) for _ in range(2))
+
+        def f(q1, k1, v1, w1):
+            return (ops.dot_product_attention(q1, k1, v1) * w1).sum()
+
+        per_sample = vmap(grad(f, argnums=(0, 1, 2)))
+        reset_counts(ops)
+        got = per_sample(q, k, v, w)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        qf, kf, vf, wf = (t.reshape(-1, *t.shape[2:]) for t in (q, k, v, w))
+        want = ops.attention_bwd_plain(qf, kf, vf, wf)
+        cmp = [compare(a.reshape(-1, *a.shape[2:]), e, "float32") for a, e in zip(got, want)]
+        ms = cuda_ms(torch, lambda: per_sample(q, k, v, w), iters=5)
+        dev_ms = device_ms(torch, lambda: per_sample(q, k, v, w), iters=5)
+        plain_ms = cuda_ms(torch, lambda: (ops.attention_plain(qf, kf, vf),
+                                           ops.attention_bwd_plain(qf, kf, vf, wf)), iters=5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qf, kf, vf))
+
+        def sdpa():
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            return torch.autograd.grad(out, (qt, kt, vt), wf.transpose(1, 2))
+
+        lib_ms = cuda_ms(torch, sdpa, iters=5)
+        unit = b * h * sq * 77 * d
+        bms, by = bound((4 * sq + 4 * 77) * b * h * d * 4, 14.0 * unit, "float32", TC_FLOPS)
+        log(f"[tti] vmapped cross-attention B={b} (one context each) Sq={sq} Skv=77 H={h} "
+            f"D={d} float32, forward and backward under vmap(grad): max_abs_err dq="
+            f"{cmp[0][0]:.3g} dk={cmp[1][0]:.3g} dv={cmp[2][0]:.3g} (tol {TOL['float32']}); "
+            f"launches {counts}; on {card}: vmap(grad) call {ms:.4f} ms event, "
+            f"{dev_ms:.4f} ms device (every kernel of the call); plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} (SDPA forward and autograd backward) "
+            f"bound_ms={bms:.4f} ({by})")
+        one = {"attention_fwd": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}
+        if not (all(ok for _, ok in cmp) and all(counts[k_] == n for k_, n in one.items())):
+            raise AssertionError(f"vmapped cross-attention at Sq={sq} D={d}: {cmp} {counts}")
+        del q, k, v, w, got, want, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def check_clip_vision(torch, np, dev, card: str) -> None:
+    """The CLIP ViT-L/14 vision tower (seeded random init) and the aesthetic
+    head: card against CPU at batch TTI_CLIP_CHECK from 256x256 images (the
+    antialiased resize to 224), then the tower timed at TTI_CLIP_BATCH beside
+    its bound (the projections', MLPs' and patch convolution's FLOPs from
+    forward hooks plus the attention products, at the f32 FMA rate)."""
+    from group_attribution_for_diffusion_models_tpu_torch.models.clip_vision import (
+        AestheticHead, CLIPVisionEncoder, load_aesthetic_head, load_clip_vision)
+
+    tower = load_clip_vision(None, device=dev)
+    head = load_aesthetic_head(None, device=dev)
+    tower_cpu = meta_copy(torch, CLIPVisionEncoder, tower)
+    tower_cpu.mean, tower_cpu.std = tower.mean.cpu(), tower.std.cpu()  # not in the state dict
+    head_cpu = meta_copy(torch, AestheticHead, head, 768)
+    rng = np.random.default_rng(23)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (TTI_CLIP_CHECK, 3, 256, 256)).astype(np.float32))
+    with torch.no_grad():
+        want = tower_cpu(imgs)
+        got = tower(imgs.to(dev)).cpu()
+        s_want, s_got = head_cpu(want), head(want.to(dev)).cpu()
+    err = (got - want).abs().max().item()
+    limit = TOWER_TOL * max(1.0, want.abs().max().item())
+    h_err = (s_got - s_want).abs().max().item()
+    vm = tower_cpu.vision_model
+    n = vm.embeddings.position_embedding.weight.shape[0]
+    width, layers = vm.pre_layrnorm.weight.shape[0], len(vm.encoder.layers)
+    flops = tower_flops(torch, tower_cpu, 224) + 4.0 * n * n * width * layers
+    del tower_cpu
+    x = torch.from_numpy(rng.uniform(0, 1, (TTI_CLIP_BATCH, 3, 256, 256)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: tower(x), iters=5)
+        dev_ms = device_ms(torch, lambda: tower(x), iters=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    weights = sum(p.numel() for p in tower.parameters())
+    bms, by = bound((x.numel() + weights + TTI_CLIP_BATCH * 768) * 4, flops * TTI_CLIP_BATCH,
+                    "float32")
+    log(f"[tti] CLIP ViT-L/14 vision tower ({weights} params) from 256x256, f32 (TF32 off), "
+        f"card vs CPU at batch {TTI_CLIP_CHECK}: max_abs_err={err:.3g} (tol {limit:.3g}), "
+        f"aesthetic head max_abs_err={h_err:.3g} (tol {TTI_HEAD_ATOL}); batch {TTI_CLIP_BATCH} "
+        f"on {card}: {ms:.3f} ms event, {dev_ms:.3f} ms device ({ms / TTI_CLIP_BATCH:.4f} ms "
+        f"an image, {TTI_CLIP_BATCH / ms * 1e3:.1f} images/s), {flops / 1e9:.3f} GFLOP an "
+        f"image, bound {bms:.3f} ms ({by}; {bms / TTI_CLIP_BATCH:.4f} ms an image), "
+        f"{bms / dev_ms:.3f} of it by device time, peak {peak:.2f} GiB")
+    if not (err <= limit and h_err <= TTI_HEAD_ATOL and torch.isfinite(got).all()):
+        raise AssertionError("the CLIP vision tower or the aesthetic head on the card "
+                             "disagrees with the CPU")
+    del tower, head, x
+    torch.cuda.empty_cache()
+
+
+def check_tti_scoring(torch, np, ops, outdir: str, card: str, common: list, timed,
+                      shape: dict, datamodel: dict) -> dict:
+    """The tier's scoring loop at full miniSD width on the stand-in: shapley
+    members and the full anchor trained (the latents' cache read), the null
+    anchor (a LoRA whose up factors are 0: the bare base), each member's mask
+    as the LDS CLIs redraw it against the trainer's kept_units;
+    compute_model_behaviors timed once, then on every member and anchor, and
+    once more, skipped by the duplicate guard; shapley_lds (the efficiency
+    constraint) and shapley_convergence; grad_features_tti in every source,
+    traks; similarity_baselines pixel, clip and aesthetic; baseline_lds over
+    the TRAK and similarity attributions. Launches reckoned from the specs.
+    Returns the summed launches."""
+    from PIL import Image
+
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        baseline_lds, compute_model_behaviors, grad_features_tti, shapley_convergence,
+        shapley_lds, similarity_baselines, train_text_to_image_lora, traks)
+    from group_attribution_for_diffusion_models_tpu_torch.data.removal import sample_removal
+    from group_attribution_for_diffusion_models_tpu_torch.models.lora import (
+        load_lora_npz, save_lora_npz)
+
+    n_attn, n_gn, n_gn_bwd, n_dec = (shape[k] for k in ("n_attn", "n_gn", "n_gn_bwd", "n_dec"))
+    no_route = {"attention_plain_fwd": 0, "attention_plain_bwd": 0}
+    steps = TTI_SHAPLEY * TTI_STEPS
+    s_out, wall, total, routes, peak = timed(train_text_to_image_lora.main, common + [
+        "--removal_dist", "shapley", "--num_seeds", str(TTI_SHAPLEY)])
+    log(f"[tti] train_text_to_image_lora {TTI_SHAPLEY} shapley members x {TTI_STEPS} steps, "
+        f"subsets {s_out['subset_sizes']} images, batch {s_out['batch']}: training "
+        f"{s_out['train_seconds']:.3f} s, call {wall:.3f} s, peak {peak:.2f} GiB, latents "
+        f"from the cache={s_out['latents_cached']}")
+    expect("shapley members", total, routes,
+           tti_counts(n_attn, n_gn, n_gn_bwd, steps, steps), no_route, phase="tti")
+    f_out, wall, counts, routes, _ = timed(train_text_to_image_lora.main, common + [
+        "--removal_dist", "full"])
+    log(f"[tti] train_text_to_image_lora --removal_dist full (the full anchor and the "
+        f"reference LoRA): 1 member x {TTI_STEPS} steps, call {wall:.3f} s")
+    expect("full anchor", counts, routes,
+           tti_counts(n_attn, n_gn, n_gn_bwd, TTI_STEPS, TTI_STEPS), no_route, phase="tti")
+    total = add_counts(total, counts)
+    if not (s_out["latents_cached"] and f_out["latents_cached"] and s_out["batch"] == TTI_BATCH
+            and all(math.isfinite(x) for x in s_out["losses"] + f_out["losses"])):
+        raise AssertionError(f"shapley members or full anchor: {s_out} {f_out}")
+    full = f_out["lora_paths"][0]
+    null = os.path.join(outdir, "null", "lora_weights.npz")
+    save_lora_npz(null, {n: {"down": ab["down"], "up": ab["up"] * 0}
+                         for n, ab in load_lora_npz(full).items()})
+
+    # Each member's mask, as collect_group_data redraws it from the behavior
+    # row's removal_dist and removal_seed, against the trainer's kept_units.
+    members = []
+    for row in (json.loads(line) for line in open(datamodel["db"])):
+        if row["removal_dist"] == "full":
+            continue
+        kept, _ = sample_removal(row["removal_dist"], TTI_ARTISTS, seed=row["removal_seed"],
+                                 alpha=row["datamodel_alpha"])
+        if sorted(kept.tolist()) != row["kept_units"]:
+            raise AssertionError(f"redrawn mask {sorted(kept.tolist())} != kept_units of "
+                                 f"{row['lora_path']}")
+        members.append(row)
+    kinds = sorted((r["removal_dist"], r["method"]) for r in members)
+    log(f"[tti] {len(members)} members' masks redrawn from (removal_dist, removal_seed) equal "
+        f"the trainer's kept_units: {kinds}")
+    if len(members) != TTI_MEMBERS + TTI_SHAPLEY + TTI_FT_MEMBERS:
+        raise AssertionError(f"members in the trainer's DB: {kinds}")
+
+    # compute_model_behaviors: one timed call at full size.
+    score = os.path.join(outdir, "scores")
+    db = os.path.join(score, "behaviors.jsonl")
+    base = ["--dataset", "imagenette", "--outdir", outdir, "--reference_lora_dir", full,
+            "--device", "cuda"]
+
+    def score_counts(n_steps, n_noises):
+        return add_counts(tti_counts(n_attn, n_gn, 0, 2 * n_steps + n_noises),
+                          model_counts(0, n_dec, 2))
+
+    decode_route = {"attention_plain_fwd": 2, "attention_plain_bwd": 0}
+    first = datamodel["lora_paths"][0]
+    c, wall, counts, routes, peak = timed(compute_model_behaviors.main, base + [
+        "--db", os.path.join(score, "timed.jsonl"), "--lora_dir", first, "--removal_dist",
+        "datamodel", "--n_samples", str(TTI_SCORE_SAMPLES), "--num_inference_steps",
+        str(TTI_SCORE_STEPS), "--n_noises", str(TTI_SCORE_NOISES)])
+    sec, row = c["seconds"], c["row"]
+    log(f"[tti] compute_model_behaviors {TTI_SCORE_SAMPLES} paired samples x "
+        f"{TTI_SCORE_STEPS} DDIM steps, {TTI_SCORE_NOISES} loss draws, f32 on {card}: "
+        f"seconds {', '.join(f'{k} {v:.3f}' for k, v in sec.items())} (generation "
+        f"{2 * TTI_SCORE_SAMPLES / sec['generation']:.4f} images/s with the KL decode), "
+        f"call {wall:.3f} s, peak {peak:.2f} GiB; ssim {row['ssim_avg']:.4f}, nrmse "
+        f"{row['nrmse_avg']:.4f}, clip_similarity {row['clip_similarity_avg']:.4f}, "
+        f"clip_prompt_score {row['clip_prompt_score_avg']:.4f}, aesthetic "
+        f"{row['aesthetic_score_avg']:.4f}, simple_loss {row['simple_loss_avg']:.5f}")
+    expect("compute_model_behaviors", counts, routes,
+           score_counts(TTI_SCORE_STEPS, TTI_SCORE_NOISES), decode_route, phase="tti")
+    total = add_counts(total, counts)
+    images = c["images"]
+    if not (images.shape == (TTI_SCORE_SAMPLES, 256, 256, 3) and np.isfinite(images).all()
+            and all(math.isfinite(row[f"{m}_avg"]) for m in compute_model_behaviors.METRICS)):
+        raise AssertionError("compute_model_behaviors: non-finite behaviors or images")
+    gen_dir = os.path.join(score, "generated")
+    os.makedirs(gen_dir)
+    for i, im in enumerate(images):
+        Image.fromarray((im * 255).round().astype(np.uint8)).save(
+            os.path.join(gen_dir, f"{i:03d}.png"))
+
+    # Every member and both anchors, smaller.
+    small = ["--n_samples", str(TTI_MEMBER_SAMPLES), "--num_inference_steps",
+             str(TTI_MEMBER_STEPS), "--n_noises", str(TTI_MEMBER_NOISES)]
+    calls = [(r["lora_path"], r["removal_dist"], r["removal_seed"], r["method"], db)
+             for r in members]
+    calls += [(full, "full", 0, "retrain", os.path.join(score, "full.jsonl")),
+              (null, "null", 0, "retrain", os.path.join(score, "null.jsonl"))]
+    t0 = time.perf_counter()
+    for path, dist, seed, method, out_db in calls:
+        c, _, counts, routes, _ = timed(compute_model_behaviors.main, base + small + [
+            "--db", out_db, "--lora_dir", path, "--removal_dist", dist, "--removal_seed",
+            str(seed), "--method", method])
+        expect(f"compute_model_behaviors {dist} {seed} {method}", counts, routes,
+               score_counts(TTI_MEMBER_STEPS, TTI_MEMBER_NOISES), decode_route, phase="tti")
+        total = add_counts(total, counts)
+    log(f"[tti] compute_model_behaviors on {len(calls)} LoRAs (every member, the full and "
+        f"null anchors), {TTI_MEMBER_SAMPLES} samples x {TTI_MEMBER_STEPS} steps: "
+        f"{time.perf_counter() - t0:.3f} s")
+    again, _, counts, routes, _ = timed(compute_model_behaviors.main, base + small + [
+        "--db", db, "--lora_dir", calls[0][0], "--removal_dist", calls[0][1],
+        "--removal_seed", str(calls[0][2]), "--method", calls[0][3]])
+    rows = [json.loads(line) for line in open(db)]
+    log(f"[tti] a repeated call: skipped={again['skipped']}, launches {counts}; {len(rows)} "
+        f"rows in the behavior DB")
+    if not (again["skipped"] and not any(counts.values()) and len(rows) == len(members)):
+        raise AssertionError("the duplicate guard did not skip a scored member")
+
+    # Shapley values, their LDS, and the sparse fine-tunes' convergence.
+    lds_args = ["--train_db", db, "--test_db", db, "--num_groups", str(TTI_ARTISTS),
+                "--train_size_step", "2", "--full_db", os.path.join(score, "full.jsonl"),
+                "--null_db", os.path.join(score, "null.jsonl")]
+    attrs_dir = os.path.join(score, "attrs")
+    attrs = shapley_lds.main(lds_args + ["--save_dir", attrs_dir])
+    v1 = [json.loads(line) for line in open(os.path.join(score, "full.jsonl"))][0]
+    v0 = [json.loads(line) for line in open(os.path.join(score, "null.jsonl"))][0]
+    key = "aesthetic_score_avg"
+    gap = v1[key] - v0[key]
+    saved = np.load(os.path.join(attrs_dir, f"attrs_shapley_retrain_{key}.npy"))
+    eff = abs(saved.sum() - gap)
+    log(f"[tti] shapley_lds: {saved.shape[0]} artist attributions, sum {saved.sum():.6g}, "
+        f"v1 - v0 = {gap:.6g}, efficiency error {eff:.3g} (tol "
+        f"{EFFICIENCY_RTOL * max(1.0, abs(gap)):.3g})")
+    if not (saved.shape == (TTI_ARTISTS,) and np.array_equal(saved, attrs)
+            and eff <= EFFICIENCY_RTOL * max(1.0, abs(gap))):
+        raise AssertionError("shapley_lds: efficiency constraint or shape")
+    conv = shapley_convergence.main(lds_args + ["--method", "pruned_ft",
+                                                "--train_size_step", "1"])
+    log(f"[tti] shapley_convergence pruned_ft against retrain: {conv}")
+    if len(conv) != TTI_FT_MEMBERS:
+        raise AssertionError(f"shapley_convergence: {conv}")
+
+    # TRAK features of the full LoRA: the train source timed, then every image.
+    trak = os.path.join(score, "trak")
+    g_common = ["--dataset", "imagenette", "--outdir", outdir, "--lora_dir", full,
+                "--proj_dim", str(TTI_TRAK_PROJ), "--batch_size", str(TTI_TRAK_BATCH),
+                "--num_inference_steps", str(TTI_TRAK_SAMPLE_STEPS), "--device", "cuda"]
+    store = os.path.join(trak, "feats.npz")
+    all_images = TTI_ARTISTS * TTI_PER_ARTIST
+
+    def trak_counts(batches, timesteps, sampling=0):
+        return add_counts(tti_counts(n_attn, n_gn, n_gn_bwd, batches * timesteps + sampling,
+                                     batches * timesteps),
+                          {**model_counts(0, 0, 0), "jl_projection": batches})
+
+    runs = [
+        ("train", ["--source", "train", "--max_examples", str(TTI_TRAK_EXAMPLES),
+                   "--num_timesteps", str(TTI_TRAK_TIMESTEPS),
+                   "--save_path", os.path.join(trak, "timed.npz")],
+         trak_counts(TTI_TRAK_EXAMPLES // TTI_TRAK_BATCH, TTI_TRAK_TIMESTEPS)),
+        ("train, every image", ["--source", "train", "--num_timesteps", "1",
+                                "--save_path", store],
+         trak_counts(all_images // TTI_TRAK_BATCH, 1)),
+        ("generated", ["--source", "generated", "--n_samples", str(TTI_TRAK_SAMPLES),
+                       "--num_timesteps", str(TTI_TRAK_TIMESTEPS), "--save_path", store],
+         trak_counts(1, TTI_TRAK_TIMESTEPS, TTI_TRAK_SAMPLE_STEPS)),
+        ("generated_journey", ["--source", "generated_journey", "--n_samples",
+                               str(TTI_TRAK_SAMPLES),
+                               "--save_path", os.path.join(trak, "journey.npz")],
+         trak_counts(1, TTI_TRAK_SAMPLE_STEPS, TTI_TRAK_SAMPLE_STEPS)),
+    ]
+    sums = ops.group_norm_silu.affine_sums
+    for label, extra, want in runs:
+        g, wall, counts, routes, peak = timed(grad_features_tti.main, g_common + extra)
+        secs, rows_ = g["batch_seconds"], g["features_shape"][0]
+        log(f"[tti] grad_features_tti {label}: features {g['features_shape']} from "
+            f"{g['grad_dim']} LoRA gradient coordinates, f32 on {card}: s/batch "
+            f"{', '.join(f'{x:.3f}' for x in secs[:4])}{' ...' if len(secs) > 4 else ''} "
+            f"(last: {min(rows_, TTI_TRAK_BATCH) / secs[-1]:.2f} examples/s), gradients "
+            f"{sum(g['grad_seconds']):.3f} s and JL {sum(g['jl_seconds']):.3f} s over "
+            f"{len(secs)} batch(es), sampling {g['sample_seconds']:.3f} s, call {wall:.3f} s, "
+            f"peak {peak:.2f} GiB")
+        expect(f"grad_features_tti {label}", counts, routes, want, no_route, phase="tti")
+        total = add_counts(total, counts)
+    with np.load(store) as st:
+        ok = (sorted(st.files) == ["gen_features", "group_labels", "train_features"]
+              and st["train_features"].shape == (all_images, TTI_TRAK_PROJ)
+              and np.isfinite(st["train_features"]).all() and st["train_features"].std() > 0
+              and len(np.unique(st["group_labels"])) == TTI_ARTISTS)
+    if not (ok and ops.group_norm_silu.affine_sums == sums):
+        raise AssertionError("grad_features_tti: the store or the frozen base's GroupNorm sums")
+    trak_attrs = traks.main(["--feature_store", store, "--save_dir", os.path.join(trak, "a")])
+    paths = [os.path.join(trak, "a", f"attrs_{m}.npy") for m in trak_attrs]
+
+    # The similarity baselines on the stand-in and the generated images.
+    for baseline in ("pixel", "clip", "aesthetic"):
+        out = os.path.join(score, f"{baseline}.npy")
+        t0 = time.perf_counter()
+        a = similarity_baselines.main(["--dataset", "imagenette", "--baseline", baseline,
+                                       "--generated_dir", gen_dir, "--save_path", out,
+                                       "--device", "cuda"])
+        log(f"[tti] similarity_baselines {baseline}: {a.shape[0]} artist attributions in "
+            f"{time.perf_counter() - t0:.3f} s, range [{a.min():.4g}, {a.max():.4g}]")
+        if not (a.shape == (TTI_ARTISTS,) and np.isfinite(a).all()):
+            raise AssertionError(f"similarity_baselines {baseline}: {a}")
+        paths.append(out)
+    lds = baseline_lds.main(["--attrs", *paths, "--test_db", db, "--num_groups",
+                             str(TTI_ARTISTS), "--bootstrapped", "--num_bootstrap_iters", "20"])
+    log(f"[tti] baseline_lds over {len(lds)} attribution vectors (TRAK family and "
+        f"similarity) against {TTI_MEMBERS} datamodel test rows: "
+        + ", ".join(f"{os.path.basename(k)} {v[0]:.2f}" for k, v in lds.items()))
+    if len(lds) != len(paths):
+        raise AssertionError(f"baseline_lds skipped attributions: {sorted(lds)}")
     return total
 
 

@@ -20,7 +20,6 @@ deterministic and carry signal but are not comparable to published ones.
 from __future__ import annotations
 
 import math
-import os
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.ckpt import weights_tag
 from ...utils.device import resolve_device
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax's
@@ -231,11 +231,8 @@ def lecun_init_(module: nn.Module, generator: torch.Generator, conv_gain: float 
 
 def inception_tag(weights_path: Optional[str] = None, seed: int = 0) -> str:
     """Names the FID tower `load_inception` builds from these arguments, for
-    the tag of cached reference stats: the weights file's absolute path and
-    size, or ``random:<seed>``."""
-    if weights_path is None:
-        return f"random:{seed}"
-    return f"{os.path.abspath(weights_path)}:{os.path.getsize(weights_path)}"
+    the tag of cached reference stats (`utils.ckpt.weights_tag`)."""
+    return weights_tag(weights_path, seed)
 
 
 def load_torch_weights(model: nn.Module, weights_path: str, drop=()) -> None:

@@ -24,6 +24,15 @@ are numpy, as in the JAX package.
 The noise is injectable: a list with one (B, C, H, W) tensor per timestep
 (or trajectory point), so tests give both packages the same draws; without
 it, the noise is drawn from the caller's `torch.Generator`.
+
+The text-to-image tier differentiates a LoRA alone, under text
+conditioning (the JAX ``params_filter=(base, lora) -> lora_merge`` and
+``conditional=True``): with `lora` the gradients are those of the LoRA
+factors, attached as ``LoRADense``'s ``lora_down``/``lora_up`` buffers by
+``functional_call`` (the side branch, numerically the merge) with the base
+held fixed, and flattened in the JAX leaf order (JAX module paths sorted,
+``down`` before ``up``); with `conditional` each sample brings its own
+context (B, M, D), vmapped beside the latents.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from torch.func import functional_call, grad, vmap
 
 from ...config.registry import SchedulerSpec
 from ...diffusion.schedulers import ScheduleState, add_noise
+from ...models.convert_diffusers import unet_jax_path
 from ...ops.jl_projection import jl_project
 
 OUTPUT_FNS = (
@@ -87,7 +97,10 @@ class PerSampleGradients:
     `sketch_probe` (`models.lora.probe_sketch_init`) the model runs with the
     probe as a zero-output LoRA side branch and only its `up` leaves are
     differentiated, so each row is the sketch down^T grad_kernel of every
-    attention projection. The two are exclusive. `names` and `dim` give the
+    attention projection; with `lora` (a `models.lora` tree) the gradients
+    are the LoRA factors', the base fixed, in the JAX leaf order. The three
+    are exclusive. With `conditional` the model takes a per-sample context,
+    a fifth vmapped argument of `accumulate`. `names` and `dim` give the
     flattening order and width."""
 
     def __init__(
@@ -96,13 +109,21 @@ class PerSampleGradients:
         output_fn: str = "loss",
         params_filter: Optional[Sequence[str]] = None,
         sketch_probe: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+        lora: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+        conditional: bool = False,
     ):
-        if sketch_probe is not None and params_filter is not None:
-            raise ValueError("sketch_probe and params_filter are exclusive")
+        if sum(x is not None for x in (sketch_probe, params_filter, lora)) > 1:
+            raise ValueError("sketch_probe, params_filter and lora are exclusive")
         self.model = model
         self.f = _output_fn(output_fn)
         params = {n: p.detach() for n, p in model.named_parameters()}
-        if sketch_probe is not None:
+        if lora is not None:
+            self.fixed = params
+            self.trainable = {}
+            for m in sorted(lora, key=lambda name: "/".join(unet_jax_path(name))):
+                self.trainable[f"{m}.lora_down"] = lora[m]["down"].detach()
+                self.trainable[f"{m}.lora_up"] = lora[m]["up"].detach()
+        elif sketch_probe is not None:
             self.fixed = dict(params)
             self.fixed.update({f"{m}.lora_down": ab["down"] for m, ab in sketch_probe.items()})
             self.trainable = {f"{m}.lora_up": ab["up"] for m, ab in sketch_probe.items()}
@@ -116,19 +137,27 @@ class PerSampleGradients:
         self.names: List[str] = list(self.trainable)
         self.dim = sum(t.numel() for t in self.trainable.values())
 
-        def scalar_out(trainable, x, t, noise):
-            eps = functional_call(model, {**self.fixed, **trainable}, (x[None], t[None]))
+        def scalar_out(trainable, x, t, noise, *context):
+            args = (x[None], t[None]) + tuple(c[None] for c in context)
+            eps = functional_call(model, {**self.fixed, **trainable}, args)
             return self.f(eps[0], noise)
 
-        self._grads = vmap(grad(scalar_out), in_dims=(None, 0, 0, 0))
+        self.conditional = conditional
+        in_dims = (None, 0, 0, 0) + ((0,) if conditional else ())
+        self._grads = vmap(grad(scalar_out), in_dims=in_dims)
 
     def accumulate(self, acc: torch.Tensor, x: torch.Tensor, t: torch.Tensor,
-                   noise: torch.Tensor) -> None:
+                   noise: torch.Tensor,
+                   encoder_hidden_states: Optional[torch.Tensor] = None) -> None:
         """acc (B, dim) += per-sample gradients at model input x (B, C, H, W),
-        timesteps t (B,) and the output function's noise, in place, leaf by
+        timesteps t (B,) and the output function's noise, and for a
+        conditional model each sample's context (B, M, D), in place, leaf by
         leaf."""
         b = x.shape[0]
-        grads = self._grads(self.trainable, x, t, noise)
+        if self.conditional != (encoder_hidden_states is not None):
+            raise ValueError("a conditional model takes encoder_hidden_states, and only it")
+        context = () if encoder_hidden_states is None else (encoder_hidden_states,)
+        grads = self._grads(self.trainable, x, t, noise, *context)
         offset = 0
         for name in self.names:
             g = grads.pop(name).reshape(b, -1)
@@ -157,31 +186,40 @@ def make_grad_feature_fn(
     proj_seed: int = 0,
     params_filter: Optional[Sequence[str]] = None,
     sketch_probe: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    lora: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    conditional: bool = False,
 ):
-    """A (images, generator=None, noise=None) -> (B, proj_dim) extractor for
-    images (B, C, H, W) in model space on the model's device.
+    """A (images, generator=None, noise=None, encoder_hidden_states=None) ->
+    (B, proj_dim) extractor for images (B, C, H, W) in model space on the
+    model's device; a `conditional` model takes each image's context
+    (B, M, D) as `encoder_hidden_states`.
 
     Per timestep of the grid it q-samples x_t from the images and one noise
     draw, adds the per-sample gradients of f into the (B, D) buffer, then
     projects the timestep mean. `noise` is a list of one tensor per timestep.
     The returned function's `mean_gradients` (same arguments) gives the
     timestep mean before the projection, and `dim` its width.
-    `params_filter` and `sketch_probe` are as in `PerSampleGradients`."""
-    grads = PerSampleGradients(model, output_fn, params_filter, sketch_probe)
+    `params_filter`, `sketch_probe` and `lora` are as in
+    `PerSampleGradients`."""
+    grads = PerSampleGradients(model, output_fn, params_filter, sketch_probe, lora, conditional)
     ts = feature_timesteps(spec.num_train_timesteps, num_timesteps, t_strategy)
 
     def mean_gradients(images: torch.Tensor, generator: Optional[torch.Generator] = None,
-                       noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                       noise: Optional[Sequence[torch.Tensor]] = None,
+                       encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, device = images.shape[0], images.device
         acc = torch.zeros((b, grads.dim), dtype=torch.float32, device=device)
         for t, n in zip(ts, _noises(noise, len(ts), images.shape, generator, device)):
             t_b = torch.full((b,), int(t), dtype=torch.long, device=device)
-            grads.accumulate(acc, add_noise(schedule, images, n, t_b), t_b, n)
+            grads.accumulate(acc, add_noise(schedule, images, n, t_b), t_b, n,
+                             encoder_hidden_states)
         return acc.div_(float(len(ts)))
 
     def features(images: torch.Tensor, generator: Optional[torch.Generator] = None,
-                 noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        return jl_project(mean_gradients(images, generator, noise), proj_dim, seed=proj_seed)
+                 noise: Optional[Sequence[torch.Tensor]] = None,
+                 encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return jl_project(mean_gradients(images, generator, noise, encoder_hidden_states),
+                          proj_dim, seed=proj_seed)
 
     features.mean_gradients = mean_gradients
     features.dim = grads.dim
@@ -197,32 +235,36 @@ def make_journey_feature_fn(
     proj_seed: int = 0,
     params_filter: Optional[Sequence[str]] = None,
     sketch_probe: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    lora: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    conditional: bool = False,
 ):
     """Journey-TRAK features: gradients at the latents a sampling run visited
     (`diffusion.sampling.sample_with_trajectory`), not at fresh q-samples.
     A (trajectory (T, B, C, H, W), timesteps (T,), generator=None,
-    noise=None) -> (B, proj_dim) extractor; the noise (one tensor per point)
-    enters only the output function. `mean_gradients` and `dim` as in
-    `make_grad_feature_fn`."""
-    grads = PerSampleGradients(model, output_fn, params_filter, sketch_probe)
+    noise=None, encoder_hidden_states=None) -> (B, proj_dim) extractor; the
+    noise (one tensor per point) enters only the output function.
+    `mean_gradients` and `dim` as in `make_grad_feature_fn`."""
+    grads = PerSampleGradients(model, output_fn, params_filter, sketch_probe, lora, conditional)
 
     def mean_gradients(trajectory: torch.Tensor, timesteps: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
-                       noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                       noise: Optional[Sequence[torch.Tensor]] = None,
+                       encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
         steps, b = trajectory.shape[:2]
         device = trajectory.device
         acc = torch.zeros((b, grads.dim), dtype=torch.float32, device=device)
         draws = _noises(noise, steps, trajectory.shape[1:], generator, device)
         for latents, t, n in zip(trajectory, timesteps.tolist(), draws):
             t_b = torch.full((b,), int(t), dtype=torch.long, device=device)
-            grads.accumulate(acc, latents, t_b, n)
+            grads.accumulate(acc, latents, t_b, n, encoder_hidden_states)
         return acc.div_(float(steps))
 
     def features(trajectory: torch.Tensor, timesteps: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        return jl_project(mean_gradients(trajectory, timesteps, generator, noise), proj_dim,
-                          seed=proj_seed)
+                 noise: Optional[Sequence[torch.Tensor]] = None,
+                 encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return jl_project(mean_gradients(trajectory, timesteps, generator, noise,
+                                         encoder_hidden_states), proj_dim, seed=proj_seed)
 
     features.mean_gradients = mean_gradients
     features.dim = grads.dim

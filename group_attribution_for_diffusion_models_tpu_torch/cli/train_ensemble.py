@@ -17,7 +17,9 @@ Latent workloads (``celeba``, ``synthetic_*_ldm``) train in the frozen
 VQ-VAE's latent space, as the JAX CLI does: the VQ-VAE (``--vqvae_weights``,
 else the seeded random tower) encodes the dataset once, cached at
 ``<outdir>/<dataset>/precomputed_emb/vqvae_latents.npy`` in the JAX layout
-(N, h, w, c), so either package reads the other's cache; the members train
+(N, h, w, c), so either package reads the other's cache, with a tag of the
+encoder, dataset and image count beside it: a cache whose tag does not match
+is encoded again (`models.vqvae.cached_latents`); the members train
 on those float32 latents times ``scaling_factor``, the eval-loss probe lives
 in latent space, and sampling runs the VQ decoder after the denoise loop.
 
@@ -58,10 +60,17 @@ from ..data import create_dataset, sample_removal
 from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import add_noise, make_schedule
 from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet
-from ..models.vqvae import load_vqvae, make_vq_decode_fn, precompute_latents
+from ..models.vqvae import (
+    SHARED_TOWER_SEED,
+    cached_latents,
+    load_vqvae,
+    make_vq_decode_fn,
+    precompute_latents,
+    save_latents,
+)
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
 from ..training.state import TrainState, make_optimizer
-from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint
+from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint, weights_tag
 from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
 from .common import (
@@ -324,9 +333,14 @@ def main(argv=None):
         t0 = time.perf_counter()
         vqvae = load_vqvae(cfg.vqvae, args.vqvae_weights, device=device)
         cache = os.path.join(args.outdir, args.dataset, "precomputed_emb", "vqvae_latents.npy")
-        cached = os.path.exists(cache)
-        train_data = (precompute_latents(vqvae, dataset.images, batch_size=32, cache_path=cache)
-                      * cfg.vqvae.scaling_factor).astype(np.float32)
+        tag = {"encoder": weights_tag(args.vqvae_weights, SHARED_TOWER_SEED),
+               "dataset": args.dataset}
+        latents = cached_latents(cache, len(dataset.images), tag)
+        cached = latents is not None
+        if not cached:
+            latents = precompute_latents(vqvae, dataset.images, batch_size=32)
+            save_latents(cache, latents, tag)
+        train_data = (latents * cfg.vqvae.scaling_factor).astype(np.float32)
         decode_fn = make_vq_decode_fn(cfg.vqvae, vqvae=vqvae)
         summary.update(encode_seconds=time.perf_counter() - t0, latents_cached=cached)
         print(f"latents {train_data.shape} {'read from' if cached else 'encoded to'} {cache} "

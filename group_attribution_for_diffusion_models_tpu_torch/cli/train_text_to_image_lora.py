@@ -12,7 +12,9 @@ text_to_image/train_text_to_image_lora.py:577-1545):
 * Caption embeddings (style prompt + artist, one per group) and the VAE's
   latents are computed once; the latents are cached under
   ``<outdir>/precomputed_emb/vae_latents.npy`` (the JAX layout, read by
-  either package) and a later call reuses them.
+  either package) with a tag of the encoder, dataset and image count beside
+  it, and a later call reuses them when the tag matches
+  (`models.vqvae.cached_latents`).
 * Group-unit removal (artist or filename) samples over the group table with
   the seed-deterministic samplers (`data.groups`) and writes
   removal_idx.csv; ``counterfactual`` removes the top or bottom of a
@@ -319,15 +321,18 @@ def main(argv=None) -> Dict:
         latents_all = np.repeat(dataset.images.mean(axis=-1, keepdims=True), 4,
                                 axis=-1).astype(np.float32)
     else:
-        from ..models.vqvae import load_sd_vae, precompute_latents
+        from ..models.vqvae import (
+            SD_VAE_SEED, cached_latents, load_sd_vae, precompute_latents, save_latents)
+        from ..utils.ckpt import weights_tag
 
         cache = os.path.join(args.outdir, "precomputed_emb", "vae_latents.npy")
-        latents_cached = os.path.exists(cache)
-        if latents_cached:
-            latents_all = np.load(cache)
-        else:
+        tag = {"encoder": weights_tag(None, SD_VAE_SEED), "dataset": args.dataset}
+        latents_all = cached_latents(cache, len(dataset.images), tag)
+        latents_cached = latents_all is not None
+        if not latents_cached:
             vae = load_sd_vae(MINISD_VAE, device=device)
-            latents_all = precompute_latents(vae, dataset.images, cache_path=cache)
+            latents_all = precompute_latents(vae, dataset.images)
+            save_latents(cache, latents_all, tag)
             del vae
     latents = torch.from_numpy(latents_all).permute(0, 3, 1, 2).contiguous().to(device)
     sync()

@@ -8,7 +8,9 @@ the latents each step starts from (Journey TRAK). For latent workloads a
 `decode_fn` (the VQ decoder, latents -> images in [-1, 1]) runs after the
 denoise loop, on the same device, before the post-processing. A
 conditional U-Net takes its context as `encoder_hidden_states` (B, M, D),
-passed to every step (the text-to-image path). The JAX package scans the
+passed to every step (the text-to-image path); `postprocess=False` returns
+the raw final latents, unclamped and not decoded (the text-to-image
+behaviors and gradient features read them). The JAX package scans the
 denoising loop inside one jit; here it is a Python loop of eager calls under
 ``torch.inference_mode``. The initial noise is either passed in
 (`init_noise`, which lets tests feed both packages the same draw) or drawn
@@ -37,10 +39,12 @@ def _ddim(
     trajectory: Optional[List[torch.Tensor]] = None,
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     encoder_hidden_states: Optional[torch.Tensor] = None,
+    postprocess: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(images in [0, 1], timesteps) of a DDIM run with eta=0, decoded by
-    `decode_fn` when given; appends the latent each step starts from to
-    `trajectory` when given one."""
+    `decode_fn` when given, or the raw final latents without `postprocess`;
+    appends the latent each step starts from to `trajectory` when given
+    one."""
     context = () if encoder_hidden_states is None else (encoder_hidden_states.to(device),)
     if init_noise is None and generator is None:
         raise ValueError("sampling needs init_noise or a generator to draw it")
@@ -65,6 +69,8 @@ def _ddim(
                 schedule, spec, eps, t_b,
                 torch.full((b,), t_prev, dtype=torch.long, device=device), x,
             )
+        if not postprocess:
+            return x, torch.from_numpy(ts).to(device)
         if decode_fn is not None:
             x = decode_fn(x)
         images = torch.clamp(x / 2.0 + 0.5, 0.0, 1.0)
@@ -83,15 +89,17 @@ def sample_loop(
     num_inference_steps: int = 100,
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     encoder_hidden_states: Optional[torch.Tensor] = None,
+    postprocess: bool = True,
 ) -> torch.Tensor:
     """Generate a batch of images of `shape` (B, C, H, W) with DDIM, eta=0.
     `model(x, t)` predicts the noise, or `model(x, t, encoder_hidden_states)`
     when a context is given; `decode_fn` maps the final latents of `shape`
-    to images in [-1, 1] (the LDM path). Only the initial noise is random,
-    so the result is a function of it."""
+    to images in [-1, 1] (the LDM path). With `postprocess=False` the raw
+    final latents come back instead, unclamped and not decoded. Only the
+    initial noise is random, so the result is a function of it."""
     images, _ = _ddim(model, schedule, spec, shape, device, generator, init_noise,
                       num_inference_steps, decode_fn=decode_fn,
-                      encoder_hidden_states=encoder_hidden_states)
+                      encoder_hidden_states=encoder_hidden_states, postprocess=postprocess)
     return images
 
 
@@ -106,15 +114,17 @@ def sample_with_trajectory(
     init_noise: Optional[torch.Tensor] = None,
     num_inference_steps: int = 100,
     decode_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """DDIM (eta=0) as `sample_loop`, returning (images in [0, 1], the
     trajectory (T, B, C, H, W) of the latents x_t each step starts from, the
     timesteps (T,)): the Journey TRAK capture of the JAX package's
-    ``sample_with_trajectory``. The trajectory is stacked outside inference
-    mode, so autograd may save it (the journey features' backward does)."""
+    ``sample_with_trajectory``, conditioned on `encoder_hidden_states` when
+    given. The trajectory is stacked outside inference mode, so autograd may
+    save it (the journey features' backward does)."""
     trajectory: List[torch.Tensor] = []
     images, ts = _ddim(model, schedule, spec, shape, device, generator, init_noise,
-                       num_inference_steps, trajectory, decode_fn)
+                       num_inference_steps, trajectory, decode_fn, encoder_hidden_states)
     return images, torch.stack(trajectory), ts
 
 

@@ -32,12 +32,19 @@ the same encoder and decoder stacks, the encoder emitting mean and logvar
 plain route again). `models.convert_diffusers.kl_vae_params_{from,to}_jax`
 carry the JAX tree across; `load_sd_vae` draws the random tower from
 SD_VAE_SEED on the device it runs on.
+
+`precompute_latents` caches a dataset's latents in the JAX layout with a
+tag beside them (the encoder, the dataset, the image count), and reads a
+cache back only when the tag matches (`cached_latents`): the JAX package
+keys its caches by path alone, so another encoder or dataset in the same
+outdir would read stale latents.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -230,16 +237,55 @@ def make_vq_decode_fn(spec: VQVAESpec, weights_path: Optional[str] = None,
     return decode_fn
 
 
+def _tag_path(cache_path: str) -> str:
+    return os.path.splitext(cache_path)[0] + ".tag.json"
+
+
+def cached_latents(cache_path: str, count: int,
+                   tag: Optional[Mapping[str, str]] = None) -> Optional[np.ndarray]:
+    """The latents cached at `cache_path` when they may stand for `count`
+    images encoded as `tag` ({"encoder": `utils.ckpt.weights_tag`, "dataset"})
+    says, else None, saying
+    on stdout why a cache is passed over. A tagged cache is read only when
+    its tag (encoder, dataset, image count) matches. A cache with no tag
+    (the JAX package writes none) is read when its row count matches, and
+    that is said too."""
+    if not os.path.exists(cache_path):
+        return None
+    rows = np.load(cache_path, mmap_mode="r").shape[0]
+    have = None
+    if os.path.exists(_tag_path(cache_path)):
+        with open(_tag_path(cache_path)) as f:
+            have = json.load(f)
+    if have is not None and tag is not None:
+        want = dict(tag, images=count)
+        if have != want:
+            print(f"latents cache {cache_path} is stale (tagged {have}, wanted {want}); "
+                  "recomputing")
+            return None
+    elif rows != count:
+        print(f"latents cache {cache_path} holds {rows} rows for {count} images; recomputing")
+        return None
+    elif have is None:
+        print(f"latents cache {cache_path} has no tag (written by the JAX package or "
+              f"without one); read, since its {rows} rows match the dataset")
+    return np.load(cache_path)
+
+
 def precompute_latents(vqvae: nn.Module, images: np.ndarray, batch_size: int = 64,
-                       cache_path: Optional[str] = None) -> np.ndarray:
+                       cache_path: Optional[str] = None,
+                       tag: Optional[Mapping[str, str]] = None) -> np.ndarray:
     """Encode the whole dataset once with `vqvae.encode` (a VQVAE's
     continuous latents, or an AutoencoderKL's scaled means): (N, H, W, C)
     float32 images in [-1, 1] -> (N, h, w, lc) float32 latents, the JAX
-    layout, cached at `cache_path`
-    (read back when it exists, from either package) and aligned with the
-    dataset's order."""
-    if cache_path is not None and os.path.exists(cache_path):
-        return np.load(cache_path)
+    layout, aligned with the dataset's order. With `cache_path` they are
+    read from a cache `cached_latents` accepts (from either package), else
+    encoded and saved there, with `tag` ({"encoder": `utils.ckpt.weights_tag`,
+    "dataset": name}) and the image count in a ``.tag.json`` beside it."""
+    if cache_path is not None:
+        hit = cached_latents(cache_path, len(images), tag)
+        if hit is not None:
+            return hit
     device = next(vqvae.parameters()).device
     outs = []
     with torch.no_grad():
@@ -249,9 +295,21 @@ def precompute_latents(vqvae: nn.Module, images: np.ndarray, batch_size: int = 6
             outs.append(z.permute(0, 2, 3, 1).cpu().numpy())
     latents = np.concatenate(outs).astype(np.float32)
     if cache_path is not None:
-        os.makedirs(os.path.dirname(os.path.abspath(cache_path)), exist_ok=True)
-        np.save(cache_path, latents)
+        save_latents(cache_path, latents, tag)
     return latents
+
+
+def save_latents(cache_path: str, latents: np.ndarray,
+                 tag: Optional[Mapping[str, str]] = None) -> None:
+    """Write the latents cache and, with `tag`, its ``.tag.json`` (the tag
+    and the row count); without one, no tag stays beside the new cache."""
+    os.makedirs(os.path.dirname(os.path.abspath(cache_path)), exist_ok=True)
+    np.save(cache_path, latents)
+    if tag is not None:
+        with open(_tag_path(cache_path), "w") as f:
+            json.dump(dict(tag, images=len(latents)), f)
+    elif os.path.exists(_tag_path(cache_path)):
+        os.remove(_tag_path(cache_path))
 
 
 class AutoencoderKL(nn.Module):

@@ -25,6 +25,14 @@ import torch
 
 from ..config.registry import UNetSpec
 
+
+def weights_tag(weights_path: Optional[str], seed: int) -> str:
+    """Names the tower a cache was made with: the weights file's absolute
+    path and size, or ``random:<seed>`` for the seeded random init."""
+    if weights_path is None:
+        return f"random:{seed}"
+    return f"{os.path.abspath(weights_path)}:{os.path.getsize(weights_path)}"
+
 _STEP_RE = re.compile(r"ckpt_steps_(\d{8})$")
 
 

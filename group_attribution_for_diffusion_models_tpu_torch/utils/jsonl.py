@@ -56,3 +56,10 @@ def filter_records(db_path: str, condition: Mapping[str, Any]) -> List[Dict[str,
     """Rows matching every (key, value) in `condition` (reference lds.py:203-266)."""
     return [rec for rec in read_records(db_path)
             if all(rec.get(k) == v for k, v in condition.items())]
+
+
+def has_record(db_path: str, condition: Mapping[str, Any]) -> bool:
+    """Whether any row matches every (key, value) in `condition`: the
+    duplicate guard (reference compute_model_behaviors.py:169-191)."""
+    return any(all(rec.get(k) == v for k, v in condition.items())
+               for rec in read_records(db_path))

@@ -587,3 +587,47 @@ def test_per_sample_gradients_on_card_batch_the_kernels(cuda):
         want = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
             torch.mean((eps - n[b:b + 1]) ** 2), params)])
         assert (acc[b] - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_jl_kernel_at_the_lora_gradient_width(cuda):
+    """B5 where grad_features_tti calls it: a batch of 16 per-sample
+    gradients of miniSD's rank-256 LoRA (D = 51,019,776) -> 4096."""
+    b, d, p = 16, 51_019_776, 4096
+    g = torch.randn(b, d, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    before = jl_project_kernel.launches
+    got = jl_project_kernel(g, p, seed=0)
+    torch.cuda.synchronize()
+    assert jl_project_kernel.launches == before + 1
+    want = jl_project_plain(g, p, seed=0, tile_d=16_384)
+    limit = 1e-6 * g.abs().sum(dim=1, keepdim=True) / p ** 0.5
+    assert ((got - want).abs() <= limit).all()
+    assert torch.equal(got, jl_project_kernel(g, p, seed=0))
+
+
+@pytest.mark.parametrize("b,sq,h,d", [(3, 1024, 8, 40), (3, 256, 8, 80), (2, 64, 8, 160)])
+def test_attention_under_vmap_with_a_context_per_sample(cuda, b, sq, h, d):
+    """Cross-attention over Skv = 77 text tokens under vmap(grad) with a
+    different context (K, V) for each vmapped sample: one forward and one
+    launch of each backward pass for the whole batch, and each sample's
+    gradients those of a per-sample autograd call."""
+    from torch.func import grad, vmap
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(b, 1, sq, h, d, generator=g, device=cuda)
+    k, v = (torch.randn(b, 1, 77, h, d, generator=g, device=cuda) for _ in range(2))
+    w = torch.randn(1, sq, h, d, generator=g, device=cuda)
+
+    def f(q1, k1, v1):
+        return (dot_product_attention(q1, k1, v1) * w).sum()
+
+    before = (attention_kernel.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    got = vmap(grad(f, argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    after = (attention_kernel.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches)
+    assert tuple(a - bf for a, bf in zip(after, before)) == (1, 1, 1)
+    atol, rtol = TOL[torch.float32]
+    for i in range(b):
+        qi, ki, vi = (t[i].clone().requires_grad_(True) for t in (q, k, v))
+        want = torch.autograd.grad(f(qi, ki, vi), (qi, ki, vi))
+        for a, bw in zip(got, want):
+            torch.testing.assert_close(a[i], bw, atol=atol, rtol=rtol)

@@ -50,6 +50,23 @@ def test_port_imports_no_jax():
     assert {f: m for f, m in bad.items() if m} == {}
 
 
+# The text-to-image scoring slice's modules: each is among the files checked.
+SCORING_SLICE = [
+    "utils/image_metrics.py", "models/clip_vision.py", "cli/compute_model_behaviors.py",
+    "cli/_tti_lds.py", "cli/shapley_lds.py", "cli/banzhaf_lds.py", "cli/loo_lds.py",
+    "cli/aoi_lds.py", "cli/shapley_convergence.py", "cli/baseline_lds.py",
+    "cli/grad_features_tti.py", "attributions/methods/similarity.py",
+    "cli/similarity_baselines.py",
+]
+
+
+@pytest.mark.parametrize("module", SCORING_SLICE)
+def test_scoring_slice_modules_import_no_jax(module):
+    path = os.path.join(PORT, module)
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("CUDA present")
