@@ -144,6 +144,24 @@ Phases (one line each; any failure raises and exits non-zero):
     ``cli.similarity_baselines.main`` pixel, clip and aesthetic on the
     stand-in and the 16 generated images; ``cli.baseline_lds.main`` over
     the TRAK and similarity attributions.
+14. unlearn: the per-subset single-model jobs at full width. A WoodFisher
+    k_vec of the full CIFAR U-Net (2 batches of 2, injected draws) card
+    against CPU. ``cli.main`` on the CIFAR stand-in: retrain on the full set
+    (20 steps at batch 64), the same command again (it resumes and trains
+    nothing), retrain and prune_fine_tune (from [pipeline]'s Taylor-pruned
+    model) on shapley seeds 0..2 by class, ga from the full model.
+    ``cli.unlearn`` from the full model on shapley seed 1: gd, ga and lora
+    (rank 16, the base frozen: no GroupNorm gamma/beta reduction, and the
+    merge moves only attention projections) with local behaviors (16 paired
+    samples x 20 DDIM steps), gd with the global ones (64 samples, FID, IS
+    and P&R of the random Inception tower); iu and ``cli.shapley_groundtruth``
+    (7 enumerated subsets x 5 steps, the efficiency constraint on the exact
+    values) on a 1,500-image 3-class CIFAR stand-in; ``cli.attribute``
+    shapley and datamodel and ``cli.empirical_verification`` on the rows
+    written; CelebA's ``cli.main`` (3 steps at batch 32) and iu in VQ
+    latents on [ldm]'s weights and latents cache. Each call's seconds split
+    into training or unlearning, sampling and scoring, iu's into its two
+    average gradients and the recursion, peaks and launches.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -343,6 +361,25 @@ TTI_CLIP_CHECK, TTI_CLIP_BATCH, TTI_HEAD_ATOL = 2, 32, 1e-5
 # The cross-attentions as grad_features_tti runs them: vmap(grad) over a batch of
 # TTI_TRAK_BATCH samples, each with its own 77-token context, (Sq, H, D).
 TTI_VMAP_ATTN = [(1024, 8, 40), (256, 8, 80), (64, 8, 160), (16, 8, 160)]
+# [unlearn]: the single-model jobs at full width. cli.main on the CIFAR stand-in:
+# retrain the full set UNL_STEPS steps at batch 64 (then the same command, which
+# resumes); retrain and prune_fine_tune (from [pipeline]'s pruned model) on shapley
+# seeds UNL_SEEDS by class, UNL_SEED_STEPS steps each, for the readers; ga from the
+# full model on seed 1. cli.unlearn on shapley seed 1 (4 of 10 classes kept): gd,
+# ga and lora UNL_UNLEARN_STEPS steps, local behaviors of UNL_LOCAL samples x steps,
+# gd also global (UNL_GLOBAL); iu, and shapley_groundtruth (7 subsets), on a
+# UNL_SMALL_IMAGES-image stand-in of UNL_SMALL_CLASSES classes (cut to size: iu's
+# average gradients run over every image of both sets). CelebA: cli.main 3 steps
+# at batch 32 on shapley seed 1 (3 of 8 celebrities, 48 images), iu on it.
+UNL_SEEDS, UNL_STEPS, UNL_SEED_STEPS, UNL_BATCH = (0, 1, 2), 20, 5, 64
+UNL_UNLEARN_STEPS, UNL_LORA_RANK, UNL_UNLEARN_SEED = 10, 16, 1
+UNL_LOCAL, UNL_GLOBAL = (16, 20), (64, 20)  # (n_samples, DDIM steps)
+UNL_SMALL_IMAGES, UNL_SMALL_CLASSES, UNL_WF_BATCHES, UNL_GT_STEPS = 1500, 3, 16, 5
+UNL_LDM_STEPS, UNL_LDM_BATCH = 3, 32
+# WoodFisher card vs CPU at CIFAR width: k_vec from 4 images (2 batches of 2) and
+# injected draws; the change k - v within WF_RTOL of the CPU's in L2 norm (two
+# gradients of 35.7M entries, each TRAIN_STEP_RTOL-close, through two dot products).
+WF_RTOL, WF_BATCH, WF_BATCHES = 1e-3, 2, 2
 
 
 def log(msg: str) -> None:
@@ -430,9 +467,10 @@ def bound(nbytes: float, flops: float, dtype: str, rates=PEAK_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def write_cifar_standin(root: str, n: int, seed: int = 0) -> None:
+def write_cifar_standin(root: str, n: int, seed: int = 0, classes: int = 10) -> None:
     """A seeded stand-in for CIFAR-10's python layout: <root>/cifar-10-batches-py/
-    data_batch_1..5, each a pickled {"data": (n/5, 3072) uint8, "labels": list}."""
+    data_batch_1..5, each a pickled {"data": (n/5, 3072) uint8, "labels": list} of
+    labels below `classes`."""
     import numpy as np
 
     base = os.path.join(root, "cifar-10-batches-py")
@@ -441,7 +479,7 @@ def write_cifar_standin(root: str, n: int, seed: int = 0) -> None:
     per = n // 5
     for i in range(1, 6):
         entry = {"data": rng.integers(0, 256, (per, 3072), dtype=np.uint8),
-                 "labels": rng.integers(0, 10, per).tolist()}
+                 "labels": rng.integers(0, classes, per).tolist()}
         with open(os.path.join(base, f"data_batch_{i}"), "wb") as f:
             pickle.dump(entry, f)
 
@@ -2582,6 +2620,273 @@ def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
     return counts
 
 
+def check_woodfisher(torch, np, spec, dev) -> None:
+    """One WoodFisher inverse-HVP at full CIFAR width, card against CPU, from
+    the same weights, images, vector and injected draws (WF_BATCHES batches of
+    WF_BATCH)."""
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_schedule
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D, build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.unlearn import woodfisher_inv_hvp
+
+    sched = get_config("cifar").scheduler
+    weights = build_unet(spec, seed=2).state_dict()
+    rng = np.random.default_rng(6)
+    n = WF_BATCH * WF_BATCHES
+    images = rng.uniform(-1, 1, (n, 32, 32, 3)).astype(np.float32)
+    draws = [(torch.from_numpy(rng.integers(0, sched.num_train_timesteps, WF_BATCH)),
+              torch.from_numpy(rng.standard_normal((WF_BATCH, 3, 32, 32)).astype(np.float32)))
+             for _ in range(WF_BATCHES)]
+    dim = sum(w.numel() for w in weights.values())
+    vector = torch.from_numpy(rng.standard_normal(dim).astype(np.float32))
+
+    def run(device):
+        model = UNet2D(spec)
+        model.load_state_dict(weights)
+        model.to(device)
+        k = woodfisher_inv_hvp(model, make_schedule(sched, device), sched, images,
+                               vector.to(device), num_batches=WF_BATCHES, batch_size=WF_BATCH,
+                               draws=draws)
+        return (k.cpu() - vector)
+
+    want, got = run("cpu"), run(dev)
+    rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    log(f"[unlearn] WoodFisher k_vec, CIFAR UNet2D ({dim} params) {WF_BATCHES} batches of "
+        f"{WF_BATCH}, injected draws, card vs CPU: |k - v| {torch.linalg.vector_norm(want):.6g}, "
+        f"relative L2 error of k - v {rel:.3g} (tol {WF_RTOL})")
+    if not (rel <= WF_RTOL and torch.isfinite(got).all()):
+        raise AssertionError("WoodFisher on the card disagrees with the CPU")
+
+
+def check_unlearn(torch, np, ops, root: str, card: str, dev, vq_weights: str) -> dict:
+    """The single-model jobs at full width: cli.main (retrain, its resume,
+    prune_fine_tune from [pipeline]'s pruned model, ga), cli.unlearn (iu, gd,
+    ga, lora; local and global behaviors), CelebA's main and iu in VQ latents,
+    and the readers (attribute, empirical_verification, shapley_groundtruth),
+    each between a counter reset and a read with the launches the code implies.
+    Returns the summed kernel launches."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        attribute, empirical_verification, main as main_cli, shapley_groundtruth, unlearn)
+    from group_attribution_for_diffusion_models_tpu_torch.config import constants
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        GroupNormSiLU, SelfAttention2D)
+    from group_attribution_for_diffusion_models_tpu_torch.models.lora import target_modules
+    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import load_checkpoint
+
+    check_woodfisher(torch, np, get_config("cifar").unet, dev)
+    outdir = os.path.join(root, "unlearn")
+    pipe = os.path.join(root, "pipeline")
+    pruned = os.path.join(pipe, "cifar", "prune", "models", "full")
+    zero = unet_counts(0, 0)
+    no_routes = {name: 0 for name in ops.PLAIN_ROUTES}
+    total = dict(zero)
+    peaks = []
+
+    def call(label, fn, argv, want):
+        nonlocal total
+        out, wall, counts, routes, peak = timed_call(torch, ops, fn, argv)
+        expect(label, counts, routes, want, no_routes, phase="unlearn")
+        total = add_counts(total, counts)
+        peaks.append(peak)
+        return out, wall, peak
+
+    def main_argv(*extra):
+        return ["--dataset", "cifar", "--outdir", outdir, "--batch_size", str(UNL_BATCH),
+                "--ckpt_freq", "0", "--sample_freq", "0", "--device", "cuda", *extra]
+
+    # cli.main: the full model, then the same command, which resumes.
+    full_argv = main_argv("--method", "retrain", "--removal_dist", "full",
+                          "--training_steps", str(UNL_STEPS))
+    r, wall, peak = call("main retrain", main_cli.main, full_argv,
+                         unet_counts(UNL_STEPS, UNL_STEPS))
+    fit_s = r["train_seconds"] - r["ckpt_seconds"]
+    log(f"[unlearn] cli.main cifar retrain full {UNL_STEPS} steps at batch {r['batch_size']} f32 "
+        f"on {card}: training {r['train_seconds']:.3f} s ({UNL_STEPS / fit_s:.3f} member-steps/s "
+        f"without the checkpoint's {r['ckpt_seconds']:.3f} s), call {wall:.3f} s, peak "
+        f"{peak:.2f} GiB, loss {r['loss']:.5f}")
+    full = r["model_dir"]
+    again, wall2, _ = call("main resume", main_cli.main, full_argv, zero)
+    log(f"[unlearn] the same command again: resumed {again['resumed']} at step "
+        f"{again['start_step']}, {again['steps_run']} steps run, call {wall2:.3f} s")
+    if not (r["steps_run"] == UNL_STEPS and math.isfinite(r["loss"]) and again["resumed"]
+            and again["start_step"] == UNL_STEPS and again["row"] is None):
+        raise AssertionError("cli.main did not train, or its second call did not resume")
+
+    # Retrain and prune_fine_tune on shapley seeds, for the readers; ga from the full model.
+    for method, extra in (("retrain", []), ("prune_fine_tune", ["--pruned_model_dir", pruned])):
+        for seed in UNL_SEEDS:
+            r, wall, _ = call(f"main {method} seed {seed}", main_cli.main, main_argv(
+                "--method", method, "--removal_dist", "shapley", "--removal_seed", str(seed),
+                "--by_class", "--training_steps", str(UNL_SEED_STEPS), *extra),
+                unet_counts(UNL_SEED_STEPS, UNL_SEED_STEPS))
+            log(f"[unlearn] cli.main {method} shapley seed {seed}: {len(r['row']['remaining_idx'])} "
+                f"images kept, {UNL_SEED_STEPS} steps {r['train_seconds']:.3f} s, call "
+                f"{wall:.3f} s, loss {r['loss']:.5f}, spec pruned "
+                f"{bool(r['spec'].pruned_channels)}")
+            if method == "prune_fine_tune" and not r["spec"].pruned_channels:
+                raise AssertionError("prune_fine_tune did not take the pruned spec")
+    r, wall, _ = call("main ga", main_cli.main, main_argv(
+        "--method", "ga", "--removal_dist", "shapley", "--removal_seed", str(UNL_UNLEARN_SEED),
+        "--by_class", "--load", full, "--training_steps", str(UNL_SEED_STEPS)),
+        unet_counts(UNL_SEED_STEPS, UNL_SEED_STEPS))
+    log(f"[unlearn] cli.main ga on the {len(r['row']['removed_idx'])} removed images of shapley "
+        f"seed {UNL_UNLEARN_SEED}: {r['train_seconds']:.3f} s, call {wall:.3f} s, loss "
+        f"{r['loss']:.5f}")
+
+    # cli.unlearn on the full model.
+    def unlearn_argv(method, behavior, samples, *extra):
+        n, k = samples
+        return ["--dataset", "cifar", "--method", method, "--load", full, "--outdir", outdir,
+                "--removal_dist", "shapley", "--removal_seed", str(UNL_UNLEARN_SEED),
+                "--by_class", "--model_behavior", behavior, "--n_samples", str(n),
+                "--num_inference_steps", str(k), "--batch_size", str(UNL_BATCH),
+                "--training_steps", str(UNL_UNLEARN_STEPS), "--device", "cuda", *extra]
+
+    def report(label, out, wall, peak):
+        log(f"[unlearn] cli.unlearn {label} f32 on {card}: unlearning "
+            f"{out['unlearn_seconds']:.3f} s, sampling {out['sampling_seconds']:.3f} s, scoring "
+            f"{out['scoring_seconds']:.3f} s, call {wall:.3f} s, peak {peak:.2f} GiB; scores "
+            f"{ {k: v for k, v in out['scores'].items() if not isinstance(v, list)} }")
+        vals = [v for v in out["scores"].values() if not isinstance(v, list)]
+        if not (vals or out["row"]["model_behavior"] == "none") or not all(
+                math.isfinite(v) for v in vals):
+            raise AssertionError(f"cli.unlearn {label}: scores {out['scores']}")
+
+    n, k = UNL_LOCAL
+    steps = UNL_UNLEARN_STEPS
+    for method in ("gd", "ga"):
+        out, wall, peak = call(f"unlearn {method} local", unlearn.main,
+                               unlearn_argv(method, "local", UNL_LOCAL),
+                               unet_counts(steps + 2 * k, steps))
+        report(f"{method} local ({steps} steps, {n} paired samples x {k} steps)", out, wall, peak)
+    sums = ops.group_norm_silu.affine_sums
+    out, wall, peak = call("unlearn lora local", unlearn.main,
+                           unlearn_argv("lora", "local", UNL_LOCAL, "--lora_rank",
+                                        str(UNL_LORA_RANK)),
+                           unet_counts(steps + 2 * k, 0, attention_only=steps))
+    report(f"lora local (rank {UNL_LORA_RANK}, {steps} steps, the base frozen; GroupNorm "
+           f"affine reductions {ops.group_norm_silu.affine_sums - sums})", out, wall, peak)
+    if ops.group_norm_silu.affine_sums != sums:
+        raise AssertionError("LoRA unlearning reduced a frozen GroupNorm's gamma/beta")
+    with torch.device("meta"):
+        lora_targets = {f"{name}.weight"
+                        for name, _ in target_modules(UNet2D(get_config("cifar").unet))}
+    sd = out["state_dict"]
+    base = load_checkpoint(full)["params"]
+    moved = sorted(n_ for n_ in base if not torch.equal(sd[n_].cpu(), base[n_]))
+    if not (moved and set(moved) <= lora_targets):
+        raise AssertionError(f"lora merge moved {moved[:4]}..., not only attention projections")
+    gn, gk = UNL_GLOBAL
+    out, wall, peak = call("unlearn gd global", unlearn.main,
+                           unlearn_argv("gd", "global", UNL_GLOBAL),
+                           unet_counts(steps + gk, steps))
+    report(f"gd global ({gn} samples x {gk} steps; FID, IS, P&R against {4 * gn} training "
+           "images)", out, wall, peak)
+
+    # iu and the exact game on a small stand-in: UNL_SMALL_CLASSES classes.
+    small = os.path.join(root, "datasets_small")
+    write_cifar_standin(small, UNL_SMALL_IMAGES, seed=3, classes=UNL_SMALL_CLASSES)
+    cifar_root, constants.DATASET_DIR = constants.DATASET_DIR, small
+    try:
+        argv = unlearn_argv("iu", "local", UNL_LOCAL, "--wf_batches", str(UNL_WF_BATCHES))
+        out, wall, counts, routes, peak = timed_call(torch, ops, unlearn.main, argv)
+        n_rm, n_kp = len(out["row"]["removed_idx"]), len(out["row"]["remaining_idx"])
+        bs = min(UNL_BATCH, 32)
+
+        def full_batches(m):
+            return max(m // bs, 1)
+
+        wf = min(UNL_WF_BATCHES, n_kp // max(bs // 4, 1))
+        nb = full_batches(n_rm) + full_batches(n_kp) + wf
+        expect("unlearn iu local", counts, routes, unet_counts(nb + 2 * k, nb), no_routes,
+               phase="unlearn")
+        total = add_counts(total, counts)
+        peaks.append(peak)
+        sec = out["iu_seconds"]
+        report(f"iu local on the {UNL_SMALL_IMAGES}-image stand-in ({n_rm} removed, {n_kp} kept; "
+               f"g_removed {sec['g_removed']:.3f} s, g_remaining {sec['g_remaining']:.3f} s, "
+               f"WoodFisher {sec['woodfisher']:.3f} s over {wf} batches of {bs // 4})",
+               out, wall, peak)
+        members = 2**UNL_SMALL_CLASSES - 1
+        gt_steps = members * UNL_GT_STEPS
+        g, wall, peak = call("shapley_groundtruth", shapley_groundtruth.main, [
+            "--dataset", "cifar", "--outdir", os.path.join(outdir, "groundtruth"),
+            "--training_steps", str(UNL_GT_STEPS), "--batch_size", str(UNL_BATCH),
+            "--fit_counts", "4,8", "--num_estimate_seeds", "2", "--device", "cuda"],
+            unet_counts(gt_steps + members + 1, gt_steps))
+    finally:
+        constants.DATASET_DIR = cifar_root
+    exact, v1, v0 = g["exact"], g["v1"], g["v0"]
+    resid = abs(exact.sum() - (v1 - v0))
+    limit = EFFICIENCY_RTOL * max(1.0, abs(v1 - v0))
+    log(f"[unlearn] shapley_groundtruth cifar {UNL_SMALL_CLASSES} classes ({members} subsets x "
+        f"{UNL_GT_STEPS} steps + the null model) on {card}: train {g['summary']['train_time_s']} "
+        f"s, call {wall:.3f} s; exact {np.round(exact, 6).tolist()}, v1 {v1:.6f}, v0 {v0:.6f}, "
+        f"efficiency residual {resid:.3g} (limit {limit:.3g}); curve "
+        f"{[(c['dist'], c['fit_subsets'], c['mse']) for c in g['summary']['convergence']]}")
+    if not (exact.shape == (UNL_SMALL_CLASSES,) and np.isfinite(exact).all() and resid <= limit):
+        raise AssertionError(f"shapley_groundtruth: exact {exact}, residual {resid}")
+
+    # The readers on the rows written above (datamodel on [pipeline]'s test rows).
+    db = os.path.join(outdir, "cifar_train_db.jsonl")
+    attrs, wall, _ = call("attribute shapley", attribute.main, [
+        "--dataset", "cifar", "--by_class", "--attribution_method", "shapley",
+        "--train_db", db, "--method", "retrain", "--model_behavior_key", "loss",
+        "--save_path", os.path.join(outdir, "attrs", "shapley.npy")], zero)
+    dm, wall_dm, _ = call("attribute datamodel", attribute.main, [
+        "--dataset", "cifar", "--by_class", "--attribution_method", "datamodel",
+        "--train_db", os.path.join(pipe, "cifar_pipeline_db.jsonl"), "--method", "retrain",
+        "--model_behavior_key", "eval_loss",
+        "--save_path", os.path.join(outdir, "attrs", "datamodel.npy")], zero)
+    ev, wall_ev, _ = call("empirical_verification", empirical_verification.main, [
+        "--db", db, "--baseline_method", "retrain", "--method", "prune_fine_tune",
+        "--removal_dist", "shapley", "--model_behavior_key", "loss"], zero)
+    log(f"[unlearn] attribute shapley ({len(UNL_SEEDS)} retrain rows, loss) {wall:.3f} s: "
+        f"{np.round(attrs, 5).tolist()}; datamodel ([pipeline]'s test rows, eval_loss) "
+        f"{wall_dm:.3f} s: {np.round(dm, 5).tolist()}; empirical_verification retrain vs "
+        f"prune_fine_tune over seeds {ev['seeds']} {wall_ev:.3f} s: pearson {ev['pearson']:.4f}, "
+        f"spearman {ev['spearman']:.4f}")
+    if not (attrs.shape == dm.shape == (10,) and np.isfinite(attrs).all()
+            and np.isfinite(dm).all() and ev["seeds"] == list(UNL_SEEDS)
+            and math.isfinite(ev["pearson"])):
+        raise AssertionError("the readers' outputs are missing or not finite")
+
+    # CelebA: cli.main and iu in VQ latents, [ldm]'s weights and latents cache.
+    cfg = get_config("celeba")
+    with torch.device("meta"):
+        ldm_unet = UNet2D(cfg.unet)
+    n_attn = sum(isinstance(m, SelfAttention2D) for m in ldm_unet.modules())
+    n_gn = sum(isinstance(m, GroupNormSiLU) for m in ldm_unet.modules())
+    cache = os.path.join(root, "ldm", "celeba", "precomputed_emb")
+    shutil.copytree(cache, os.path.join(outdir, "celeba", "precomputed_emb"))
+    ldm_common = ["--dataset", "celeba", "--outdir", outdir, "--vqvae_weights", vq_weights,
+                  "--removal_dist", "shapley", "--removal_seed", str(UNL_UNLEARN_SEED),
+                  "--by_class", "--batch_size", str(UNL_LDM_BATCH), "--device", "cuda"]
+    r, wall, peak = call("celeba main retrain", main_cli.main, ldm_common + [
+        "--method", "retrain", "--training_steps", str(UNL_LDM_STEPS), "--ckpt_freq", "0"],
+        model_counts(n_attn, n_gn, UNL_LDM_STEPS, UNL_LDM_STEPS))
+    log(f"[unlearn] cli.main celeba retrain {UNL_LDM_STEPS} steps at batch {r['batch_size']} f32 "
+        f"on {card}: training {r['train_seconds']:.3f} s (checkpoint {r['ckpt_seconds']:.3f} s), "
+        f"latents {r['encode_seconds']:.3f} s, call {wall:.3f} s, peak {peak:.2f} GiB, loss "
+        f"{r['loss']:.5f}")
+    n_rm, n_kp = len(r["row"]["removed_idx"]), len(r["row"]["remaining_idx"])
+    bs = UNL_LDM_BATCH
+    nb = (max(n_rm // bs, 1) + max(n_kp // bs, 1)
+          + min(UNL_WF_BATCHES, n_kp // (bs // 4)))
+    out, wall, peak = call("celeba unlearn iu", unlearn.main, ldm_common + [
+        "--method", "iu", "--load", r["model_dir"], "--model_behavior", "none",
+        "--wf_batches", str(UNL_WF_BATCHES)], model_counts(n_attn, n_gn, nb, nb))
+    sec = out["iu_seconds"]
+    report(f"iu celeba in VQ latents ({n_rm} removed, {n_kp} kept; g_removed "
+           f"{sec['g_removed']:.3f} s, g_remaining {sec['g_remaining']:.3f} s, WoodFisher "
+           f"{sec['woodfisher']:.3f} s; {nb} forward and backward passes at batch <= {bs})",
+           out, wall, peak)
+    log(f"[unlearn] launches of the phase {total}, peak of its calls {max(peaks):.2f} GiB")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2724,12 +3029,16 @@ def run(torch, tmp: str) -> int:
     t0 = time.perf_counter()
     tti_counts_ = check_tti(torch, np, ops, tmp, card, dev)
     log(f"[tti] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    unlearn_counts = check_unlearn(torch, np, ops, tmp, card, dev, os.path.join(
+        tmp, "ldm", "celeba", "vqvae", "vqvae_weights.npy"))
+    log(f"[unlearn] phase {time.perf_counter() - t0:.1f} s")
 
-    # launches: the seven main paths, sampling, training, TRAK, the estimation
-    # loop, the sample behaviors, the latent-diffusion workload and the
-    # text-to-image tier.
+    # launches: the eight main paths, sampling, training, TRAK, the estimation
+    # loop, the sample behaviors, the latent-diffusion workload, the
+    # text-to-image tier and the single-model jobs.
     launches = add_counts(sample_counts, train_counts, trak_counts, pipe_counts, score_counts,
-                          ldm_counts, tti_counts_)
+                          ldm_counts, tti_counts_, unlearn_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

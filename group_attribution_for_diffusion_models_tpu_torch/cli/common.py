@@ -8,7 +8,9 @@ layout, the JSONL provenance row, the tracker, `add_common_args` without
 comes later), and `checkpoint_spec`; for the scoring CLIs, the sample
 directory loader (`load_sample_dir`) and the reference images of FID; and
 for the text-to-image CLIs, the pretrained-tower flags and their loaders
-(`add_sd_pretrained_args`, `sd_text_params`, `sd_base_params`).
+(`add_sd_pretrained_args`, `sd_text_params`, `sd_base_params`); and the
+removal split of one job (`setup_removal`), which the single-model jobs and
+the ensemble trainer share.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +32,8 @@ from ..config.registry import (
     WorkloadConfig,
     get_config,
 )
+from ..data import sample_removal
+from ..data.datasets import ArrayDataset
 from ..utils.ckpt import load_meta, load_unet_spec
 from ..utils.trackers import make_tracker
 
@@ -180,6 +184,56 @@ def vq_decode_fn_for(cfg: WorkloadConfig, vqvae_weights: Optional[str] = None, d
     from ..models.vqvae import make_vq_decode_fn
 
     return make_vq_decode_fn(cfg.vqvae, vqvae_weights, device=device)
+
+
+def setup_removal(
+    args, dataset: ArrayDataset, seed: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(remaining, removed) indices of this job from the CLI args: the
+    removal split of ``--removal_dist`` at `seed` (default
+    ``--removal_seed``), by class with ``--by_class``."""
+    if args.removal_dist == "full":
+        return np.arange(len(dataset)), np.array([], dtype=np.int64)
+    target = dataset.labels if args.by_class else len(dataset)
+    return sample_removal(
+        args.removal_dist,
+        target,
+        seed=args.removal_seed if seed is None else seed,
+        alpha=args.datamodel_alpha,
+        by_class=args.by_class,
+        idx=args.removal_idx,
+    )
+
+
+def latents_cache_path(outdir: str, dataset: str) -> str:
+    """Where a latent workload's encoded dataset is cached (the JAX layout)."""
+    return os.path.join(outdir, dataset, "precomputed_emb", "vqvae_latents.npy")
+
+
+def dataset_latents(args, cfg: WorkloadConfig, dataset: ArrayDataset, device,
+                    cache: bool = True):
+    """(latents (N, h, w, c) float32 unscaled, the frozen VQ-VAE on `device`,
+    whether a cache was read) for a latent workload: the VQ-VAE of
+    ``--vqvae_weights`` (else the seeded random tower) encodes the dataset
+    once; with `cache`, through the tagged cache at `latents_cache_path`,
+    which either package's cache serves when its tag (or, untagged, its row
+    count) matches."""
+    from ..models.vqvae import (
+        SHARED_TOWER_SEED, cached_latents, load_vqvae, precompute_latents, save_latents)
+    from ..utils.ckpt import weights_tag
+
+    vqvae = load_vqvae(cfg.vqvae, args.vqvae_weights, device=device)
+    if not cache:
+        return precompute_latents(vqvae, dataset.images, batch_size=32), vqvae, False
+    path = latents_cache_path(args.outdir, args.dataset)
+    tag = {"encoder": weights_tag(args.vqvae_weights, SHARED_TOWER_SEED),
+           "dataset": args.dataset}
+    latents = cached_latents(path, len(dataset.images), tag)
+    if latents is not None:
+        return latents, vqvae, True
+    latents = precompute_latents(vqvae, dataset.images, batch_size=32)
+    save_latents(path, latents, tag)
+    return latents, vqvae, False
 
 
 def provenance_row(args, **extra) -> Dict:

@@ -56,21 +56,14 @@ from ..attributions.global_scores import (
     save_stats,
 )
 from ..config import constants
-from ..data import create_dataset, sample_removal
+from ..data import create_dataset
 from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import add_noise, make_schedule
 from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet
-from ..models.vqvae import (
-    SHARED_TOWER_SEED,
-    cached_latents,
-    load_vqvae,
-    make_vq_decode_fn,
-    precompute_latents,
-    save_latents,
-)
+from ..models.vqvae import make_vq_decode_fn
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
 from ..training.state import TrainState, make_optimizer
-from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint, weights_tag
+from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
 from .common import (
@@ -78,10 +71,13 @@ from .common import (
     as_rgb,
     checkpoint_spec,
     config_for,
+    dataset_latents,
+    latents_cache_path,
     model_output_dir,
     provenance_row,
     reference_images,
     save_removal_indices,
+    setup_removal,
     tracker_for,
 )
 
@@ -191,12 +187,7 @@ def _removals(args, dataset, seeds):
         return [mask_to_removal(masks[s]) for s in seeds]
     if args.removal_dist == "enum":
         raise SystemExit("--removal_dist enum requires --removal_masks")
-    target = dataset.labels if args.by_class else len(dataset)
-    return [
-        sample_removal(args.removal_dist, target, seed=s, alpha=args.datamodel_alpha,
-                       by_class=args.by_class)
-        for s in seeds
-    ]
+    return [setup_removal(args, dataset, seed=s) for s in seeds]
 
 
 def score_members(samples: np.ndarray, extract, ref_stats=None) -> dict:
@@ -331,15 +322,8 @@ def main(argv=None):
         # One encode of the whole dataset, shared by every member and cached
         # for every later call on this outdir.
         t0 = time.perf_counter()
-        vqvae = load_vqvae(cfg.vqvae, args.vqvae_weights, device=device)
-        cache = os.path.join(args.outdir, args.dataset, "precomputed_emb", "vqvae_latents.npy")
-        tag = {"encoder": weights_tag(args.vqvae_weights, SHARED_TOWER_SEED),
-               "dataset": args.dataset}
-        latents = cached_latents(cache, len(dataset.images), tag)
-        cached = latents is not None
-        if not cached:
-            latents = precompute_latents(vqvae, dataset.images, batch_size=32)
-            save_latents(cache, latents, tag)
+        latents, vqvae, cached = dataset_latents(args, cfg, dataset, device)
+        cache = latents_cache_path(args.outdir, args.dataset)
         train_data = (latents * cfg.vqvae.scaling_factor).astype(np.float32)
         decode_fn = make_vq_decode_fn(cfg.vqvae, vqvae=vqvae)
         summary.update(encode_seconds=time.perf_counter() - t0, latents_cached=cached)

@@ -1,4 +1,4 @@
-from .datasets import ArrayDataset, create_dataset, make_synthetic  # noqa: F401
+from .datasets import ArrayDataset, batch_iterator, create_dataset, make_synthetic  # noqa: F401
 from .removal import (  # noqa: F401
     remove_data_by_class,
     remove_data_by_datamodel,

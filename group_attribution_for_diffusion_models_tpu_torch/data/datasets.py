@@ -30,8 +30,7 @@ from ..config import constants
 class ArrayDataset:
     """Images (N, H, W, C) float32 in [-1, 1] + integer group labels (N,).
     ``names`` optionally carries per-item string ids (the image files of a
-    group table). The JAX class's ``subset`` and ``num_classes`` come with
-    the workloads that read them."""
+    group table)."""
 
     images: np.ndarray
     labels: np.ndarray
@@ -44,6 +43,14 @@ class ArrayDataset:
 
     def __len__(self) -> int:
         return len(self.images)
+
+    def subset(self, idx: np.ndarray) -> "ArrayDataset":
+        names = [self.names[i] for i in idx] if self.names is not None else None
+        return ArrayDataset(self.images[idx], self.labels[idx], names)
+
+    @property
+    def num_classes(self) -> int:
+        return int(len(np.unique(self.labels)))
 
 
 def _normalize(u8: np.ndarray) -> np.ndarray:
@@ -219,3 +226,22 @@ def create_dataset(
         f"dataset_name={dataset_name!r}: the port reads 'cifar', 'celeba', "
         "'imagenette' and 'synthetic*' so far"
     )
+
+
+def batch_iterator(
+    dataset: ArrayDataset,
+    batch_size: int,
+    seed: int,
+    drop_remainder: bool = True,
+):
+    """Infinite shuffled epoch iterator over numpy (images, labels) batches:
+    a `np.random.RandomState(seed)` permutation an epoch, so the order is the
+    JAX package's bit for bit."""
+    n = len(dataset)
+    rng = np.random.RandomState(seed)
+    while True:
+        perm = rng.permutation(n)
+        end = (n // batch_size) * batch_size if drop_remainder else n
+        for i in range(0, end, batch_size):
+            idx = perm[i : i + batch_size]
+            yield dataset.images[idx], dataset.labels[idx]

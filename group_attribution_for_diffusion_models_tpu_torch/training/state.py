@@ -15,10 +15,10 @@ and bias corrections are computed on the host in float32, as optax computes
 them on the device. Adafactor and 8-bit Adam come with the tiers that use
 them.
 
-EMA semantics match diffusers EMAModel with use_ema_warmup=False, as the
-reference constructs it: per-step decay min(max_decay, (1+step)/(10+step)).
-The JAX step's EMA options (max decay, power, warmup) and
-``use_antithetic`` come with their caller, ``cli/main.py``.
+EMA semantics match diffusers EMAModel (`ema_decay_schedule`); the train
+step calls it with use_warmup=False, as the JAX step and the reference do:
+per-step decay min(max_decay, (1+step)/(10+step)), where inv_gamma and
+power have no effect.
 """
 
 from __future__ import annotations
@@ -36,12 +36,17 @@ EMA_MAX_DECAY = 0.9999
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
-def ema_decay_schedule(step: int) -> np.float32:
-    """Per-step EMA decay (diffusers EMAModel.get_decay without warmup), in
-    float32: min(0.9999, (1 + step) / (10 + step))."""
+def ema_decay_schedule(step: int, max_decay: float = EMA_MAX_DECAY, use_warmup: bool = False,
+                       inv_gamma: float = 1.0, power: float = 0.75) -> np.float32:
+    """Per-step EMA decay (diffusers EMAModel.get_decay), in float32:
+    1 - (1 + step / inv_gamma) ** -power with `use_warmup`, else
+    (1 + step) / (10 + step); clipped to [0, max_decay]."""
     step_f = max(_F32(step), _F32(0.0))
-    decay = (_F32(1.0) + step_f) / (_F32(10.0) + step_f)
-    return _F32(min(max(decay, _F32(0.0)), _F32(EMA_MAX_DECAY)))
+    if use_warmup:
+        decay = _F32(1.0) - (_F32(1.0) + step_f / _F32(inv_gamma)) ** -_F32(power)
+    else:
+        decay = (_F32(1.0) + step_f) / (_F32(10.0) + step_f)
+    return _F32(min(max(decay, _F32(0.0)), _F32(max_decay)))
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and host batches onto it."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,8 @@ def resolve_device(name: str = "cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return device
+
+
+def to_device(images: np.ndarray, device) -> torch.Tensor:
+    """(B, H, W, C) numpy images -> (B, C, H, W) float32 on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2).to(device)

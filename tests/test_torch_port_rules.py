@@ -60,7 +60,15 @@ SCORING_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("module", SCORING_SLICE)
+# The single-model jobs' slice: cli.main, WoodFisher unlearning and its CLI,
+# and the CLIs that read their rows.
+SINGLE_MODEL_SLICE = [
+    "cli/main.py", "unlearn/__init__.py", "unlearn/woodfisher.py", "cli/unlearn.py",
+    "cli/attribute.py", "cli/empirical_verification.py", "cli/shapley_groundtruth.py",
+]
+
+
+@pytest.mark.parametrize("module", SCORING_SLICE + SINGLE_MODEL_SLICE)
 def test_scoring_slice_modules_import_no_jax(module):
     path = os.path.join(PORT, module)
     assert path in _port_files()
