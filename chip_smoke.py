@@ -72,13 +72,16 @@ Phases (one line each; any failure raises and exits non-zero):
     bound from the layer shapes; the same for VGG16Features at 224. Then
     the main path of the sample behaviors: ``cli.shapley_pipeline.main
     --behavior fid_value`` at full width on the stand-in (by class, 2
-    shapley fit and 4 datamodel test subsets, 20 steps at batch 64, the two
-    anchors, 256 DDIM samples of 20 steps a member scored in the loop), its
+    shapley fit and 2 datamodel test subsets, the fewest its fit stage takes,
+    20 steps at batch 64, the two anchors, 256 DDIM samples of 20 steps a
+    member scored in the loop: 6 FIDs, each a 2048-d host sqrtm), its
     seconds split into training, sampling, tower and FID math, launches,
     every member's FID and the efficiency constraint asserted; then
     ``cli.calculate_global_scores.main`` on the full anchor's checkpoint
     (the same 256 samples: FID and IS equal to the anchor's row; precision
-    and recall on VGG16 features).
+    and recall on VGG16 features). scipy's sqrtm is memoised by its input's
+    bytes for the phase, so the global check takes the anchor's root when its
+    features and stats are the anchor's, and roots anew when they are not.
 12. ldm: the latent-diffusion workload at full CelebA width (the 274M U-Net,
     the full VQ-VAE, the full BLIP tower, seeded random inits) on a seeded
     CelebA-HQ stand-in (128 smooth 256x256 PNGs, labels.csv of 8 integer
@@ -162,6 +165,37 @@ Phases (one line each; any failure raises and exits non-zero):
     latents on [ldm]'s weights and latents cache. Each call's seconds split
     into training or unlearning, sampling and scoring, iu's into its two
     average gradients and the recursion, peaks and launches.
+15. local: per-example attribution and local behaviors on both unconditional
+    workloads. The JL kernel at the CelebA U-Net's gradient width at batch 8
+    (8 x 274,056,163, past 2^31 elements) against its plain version on the
+    last 2^24 coordinates of every row, where the last row's offsets pass
+    2^31, and timed at the full shape beside its bound; the CelebA U-Net's
+    attention (three head-dim-32 levels) and GroupNorms (four widths, a
+    gamma/beta gradient per sample) under vmap(grad) at batch 8 against the
+    plain versions, one launch each, timed beside plain and library times.
+    Then ``cli.grad_features.main`` in VQ latents on [ldm]'s full anchor and
+    tagged latents cache at batch 8: the train source (2 batches x 10
+    timesteps -> 4096), generated (8 samples x 20 DDIM steps, raw latents),
+    probe and attn_full (a batch each), generated_journey (5 steps), and
+    ``cli.traks.main`` on the store; ``cli.sketch_quality.main`` on CIFAR
+    ([unlearn]'s full model, 64 train and 32 generated images, probes at k
+    16 and 64, 2 timesteps, LDS on [pipeline]'s datamodel rows);
+    ``cli.calculate_local_scores.main`` and ``cli.calculate_local_loss.main``
+    on CIFAR and on CelebA (decoded by the VQ decoder), [unlearn]'s full
+    model against its shapley seed 1 model, 8 samples x 20 DDIM steps on
+    CIFAR and x 10 on CelebA.
+16. data: workload 1's other datasets from seeded stand-ins in their real
+    layouts (a 50,000-image ``cifar-100-python`` pickle, 60,000-image MNIST
+    idx files, the CIFAR-10 stand-in): ``create_dataset`` of cifar2,
+    cifar100, cifar100_f and mnist with shapes, label counts and seconds; the
+    full ResNet-18 regroup tower (torchvision's init from a seed) card vs CPU
+    on 8 images resized to 224 and timed at batch 256 beside its FLOP bound;
+    cifar100_new regrouped from it (10,000 animal images embedded on the
+    card, k-means into 40 groups on the host, the cache written); the MNIST
+    U-Net's attention (D = 256 at 8x8; its D = 512 mid block takes the plain
+    route) and every GroupNorm of its pass against the plain versions, then
+    ``cli.main`` retrain on mnist (5 steps at batch 64) and
+    ``cli.generate_samples.main`` (16 x 20 DDIM steps, 32x32 gray PNGs).
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -173,6 +207,7 @@ CUDA it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -274,9 +309,13 @@ EFFICIENCY_RTOL = 1e-6
 # layers summed in other orders; tests/test_inception_numeric.py's tolerance).
 TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 8, 256
 # shapley_pipeline --behavior fid_value at full width: shapley seeds 0..1 keep 1-9
-# classes, datamodel seeds 42..45 keep 5; every member scored on its own samples.
-# Two fit and four test subsets keep the whole script near 10 minutes.
-SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 4, 20, 64
+# classes, datamodel seeds 42..43 keep 5; every member scored on its own samples.
+# Each FID is a 2048-d host sqrtm of 13-21 s: two fit and two test subsets (the
+# fewest the fit stage takes) and the two anchors are 6. The global-scores check
+# re-scores the full anchor's samples, the same sqrtm input when the port is right:
+# each distinct input is rooted once (a memo by the matrix's bytes), so the check
+# adds no seventh root unless its features or stats differ.
+SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 20, 64
 SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 20, 42
 # calculate_global_scores --seed SCORE_SEED on the anchor's checkpoint draws the
 # anchor's own samples (train_ensemble's default --opt_seed, which the pipeline
@@ -376,6 +415,45 @@ UNL_UNLEARN_STEPS, UNL_LORA_RANK, UNL_UNLEARN_SEED = 10, 16, 1
 UNL_LOCAL, UNL_GLOBAL = (16, 20), (64, 20)  # (n_samples, DDIM steps)
 UNL_SMALL_IMAGES, UNL_SMALL_CLASSES, UNL_WF_BATCHES, UNL_GT_STEPS = 1500, 3, 16, 5
 UNL_LDM_STEPS, UNL_LDM_BATCH = 3, 32
+# [local]: per-example attribution and local behaviors on both unconditional
+# workloads. grad_features on [ldm]'s CelebA full anchor and tagged latents cache at
+# LOC_BATCH (the train source LOC_TRAIN examples x LOC_TIMESTEPS timesteps; generated
+# LOC_BATCH samples x LOC_GEN_STEPS DDIM steps; the journey over LOC_JOURNEY_STEPS;
+# probe and attn_full one batch each), then traks. B5 at LOC_JL (the CelebA U-Net's
+# 274,056,163 gradient coordinates at batch 8): B*D passes 2^31, so int32 offsets
+# would wrap in the last row; the kernel is held against the plain version on a
+# window of the last LOC_JL_WINDOW coordinates of every row (the rest zero: each
+# output row is a sum over its row's coordinates), where the last row's offsets
+# b*D + d all pass 2^31.
+LOC_BATCH, LOC_TRAIN, LOC_TIMESTEPS, LOC_PROJ = 8, 16, 10, 4096
+LOC_GEN_STEPS, LOC_JOURNEY_STEPS = 20, 5
+LOC_JL = (8, 274_056_163, 4096)
+LOC_JL_WINDOW = 1 << 24
+# The CelebA U-Net's attention and GroupNorms under vmap(grad) at LOC_BATCH, one
+# sample each: (Sq, H, D) of each level, (C, H, W) of each resnet width.
+LOC_VMAP_ATTN = [(1024, 14, 32), (256, 21, 32), (64, 28, 32)]
+LOC_VMAP_GN = [(224, 64, 64), (448, 32, 32), (672, 16, 16), (896, 8, 8)]
+# sketch_quality on CIFAR (full, attn_full, a probe at each k), then the local
+# behaviors on CIFAR and CelebA: LOC_LOCAL samples x LOC_LOCAL_STEPS[dataset] DDIM
+# steps, LOC_NOISES loss draws. CelebA takes 10 steps: each step of its local loss
+# decodes both models' x0-hat through the VQ decoder.
+LOC_SKETCH = dict(max_examples=64, n_gen=32, ks=(16, 64), timesteps=2, steps=20, proj=512)
+LOC_LOCAL, LOC_NOISES = 8, 4
+LOC_LOCAL_STEPS = {"cifar": 20, "celeba": 10}
+# An attention-only backward (TRAK's probe and attn_full modes) skips the 7
+# GroupNorms before the first attention block's projections, in the CelebA U-Net
+# as in CIFAR's (unet_counts).
+LOC_GN_SKIPPED = 7
+# [data]: the datasets of workload 1 from seeded stand-ins in their real layouts
+# (CIFAR-100's python pickle, MNIST's idx files, the CIFAR-10 stand-in for cifar2),
+# the ResNet-18 regroup tower (torchvision's init from a seed) card vs CPU on
+# DATA_RESNET_CHECK images and timed at DATA_RESNET_BATCH, cifar100_new regrouped
+# from it, and the MNIST U-Net: B1-B4 at its shapes, cli.main 5 steps at batch 64,
+# generate_samples 16 x 20 steps.
+CIFAR100_TRAIN_IMAGES, MNIST_TRAIN_IMAGES = 50_000, 60_000
+DATA_RESNET_CHECK, DATA_RESNET_BATCH = 8, 256
+DATA_MNIST_STEPS, DATA_MNIST_BATCH, DATA_MNIST_SAMPLES, DATA_MNIST_SAMPLE_STEPS = 5, 64, 16, 20
+MNIST_ATTN_SHAPES = [(64, 64, 64, 1, 256)]  # the 8x8 attention, one head of 256, batch 64
 # WoodFisher card vs CPU at CIFAR width: k_vec from 4 images (2 batches of 2) and
 # injected draws; the change k - v within WF_RTOL of the CPU's in L2 norm (two
 # gradients of 35.7M entries, each TRAIN_STEP_RTOL-close, through two dot products).
@@ -482,6 +560,40 @@ def write_cifar_standin(root: str, n: int, seed: int = 0, classes: int = 10) -> 
                  "labels": rng.integers(0, classes, per).tolist()}
         with open(os.path.join(base, f"data_batch_{i}"), "wb") as f:
             pickle.dump(entry, f)
+
+
+def write_cifar100_standin(root: str, n: int = CIFAR100_TRAIN_IMAGES, seed: int = 1) -> None:
+    """A seeded stand-in for CIFAR-100's python layout: <root>/cifar-100-python/train,
+    a pickled {"data": (n, 3072) uint8, "fine_labels", "coarse_labels"}, n / 100
+    images of each fine class in a shuffled order."""
+    import numpy as np
+
+    base = os.path.join(root, "cifar-100-python")
+    os.makedirs(base)
+    rng = np.random.default_rng(seed)
+    fine = rng.permutation(np.repeat(np.arange(100), n // 100))
+    entry = {"data": rng.integers(0, 256, (len(fine), 3072), dtype=np.uint8),
+             "fine_labels": fine.tolist(), "coarse_labels": (fine // 5).tolist()}
+    with open(os.path.join(base, "train"), "wb") as f:
+        pickle.dump(entry, f)
+
+
+def write_mnist_standin(root: str, n: int = MNIST_TRAIN_IMAGES, seed: int = 2) -> None:
+    """A seeded stand-in for MNIST's idx files: <root>/MNIST/raw/train-images-idx3-ubyte
+    (magic 2051, n x 28 x 28 uint8) and train-labels-idx1-ubyte (magic 2049)."""
+    import struct
+
+    import numpy as np
+
+    base = os.path.join(root, "MNIST", "raw")
+    os.makedirs(base)
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(base, "train-images-idx3-ubyte"), "wb") as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28))
+        f.write(rng.integers(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
+    with open(os.path.join(base, "train-labels-idx1-ubyte"), "wb") as f:
+        f.write(struct.pack(">II", 2049, n))
+        f.write(rng.integers(0, 10, n, dtype=np.uint8).tobytes())
 
 
 def write_celeba_standin(root: str, n: int = LDM_IMAGES, ids=LDM_IDS, seed: int = 0) -> None:
@@ -1148,14 +1260,37 @@ def check_towers(torch, np, dev, card: str) -> None:
 def check_scores(torch, np, ops, root: str, card: str) -> dict:
     """shapley_pipeline --behavior fid_value at full width on the stand-in,
     then calculate_global_scores on its full anchor's checkpoint, each
-    between a counter reset and a read, with the launches the code implies.
-    Returns the summed counts."""
+    between a counter reset and a read, with the launches the code implies,
+    and scipy's sqrtm memoised by its input's bytes. Returns the summed
+    counts."""
+    from scipy import linalg
+
+    outdir = os.path.join(root, "scores")
+    ref_stats = os.path.join(outdir, "inception_ref_stats.pkl")
+    roots, calls, sqrtm = {}, [], linalg.sqrtm
+
+    def sqrtm_once(a, *args, **kwargs):
+        key = (a.shape, hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest())
+        calls.append(key)
+        if key not in roots:
+            roots[key] = sqrtm(a, *args, **kwargs)
+        return roots[key]
+
+    linalg.sqrtm = sqrtm_once
+    try:
+        return _check_scores(torch, np, ops, outdir, ref_stats, card, roots, calls)
+    finally:
+        linalg.sqrtm = sqrtm
+
+
+def _check_scores(torch, np, ops, outdir: str, ref_stats: str, card: str, roots: dict,
+                  calls: list) -> dict:
+    """check_scores' calls, with the host square roots of `roots` (memo) and
+    `calls` (each call's input key)."""
     from group_attribution_for_diffusion_models_tpu_torch.cli import (
         calculate_global_scores, shapley_pipeline)
     from group_attribution_for_diffusion_models_tpu_torch.utils.jsonl import read_records
 
-    outdir = os.path.join(root, "scores")
-    ref_stats = os.path.join(outdir, "inception_ref_stats.pkl")
     members = SCORE_FIT + SCORE_TEST + 2  # and the null and full anchors
     steps = (SCORE_FIT + SCORE_TEST + 1) * SCORE_STEPS
     # Per member: its steps' forwards and backwards, one forward a DDIM step.
@@ -1176,6 +1311,7 @@ def check_scores(torch, np, ops, root: str, card: str) -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    pipe_roots = len(roots)
     rows = [x for x in read_records(r["db"]) if "fid_value" in x]
     fids = [x["fid_value"] for x in rows]
     sec, row = r["seconds"], r["row"]
@@ -1187,7 +1323,8 @@ def check_scores(torch, np, ops, root: str, card: str) -> dict:
         f"{SCORE_SAMPLE_STEPS} DDIM steps a member; seconds: training {sec['train']:.3f}, "
         f"sampling {sec['sample']:.3f} ({sec['sample'] / members:.3f} a member), tower "
         f"{sec['tower']:.3f} (synchronised host clock, with the 2048 reference images), "
-        f"FID math {sec['fid']:.3f} (host, {members} sqrtm, {sec['fid'] / members:.3f} each); "
+        f"FID math {sec['fid']:.3f} (host, {pipe_roots} sqrtm of {len(calls)} calls, "
+        f"{sec['fid'] / max(1, pipe_roots):.3f} each); "
         f"pipeline clock {r['train_seconds']:.3f} s, subset_passes_per_hour "
         f"{row['subset_passes_per_hour']}, call {wall:.3f} s, peak {peak_gib:.2f} GiB; "
         f"v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual {resid:.3g} (limit "
@@ -1205,6 +1342,7 @@ def check_scores(torch, np, ops, root: str, card: str) -> dict:
                  and x["training_steps"] == SCORE_STEPS]
 
     full = os.path.join(outdir, "cifar", "retrain", "models", "full")
+    pipe_calls = len(calls)
     torch.cuda.synchronize()
     reset_counts(ops)
     t0 = time.perf_counter()
@@ -1223,8 +1361,10 @@ def check_scores(torch, np, ops, root: str, card: str) -> dict:
         f"{rel:.3g}, equal={g['fid_value'] == anchor['fid_value']}), is {g['is']:.6f} "
         f"(row {anchor['is']:.6f}) +- {g['is_std']:.4f}, precision {g['precision']}, recall "
         f"{g['recall']} (VGG16 fc2), sampling {g['sampling_time']:.3f} s, scoring "
-        f"{g['scoring_time']:.3f} s, call {g_wall:.3f} s; launches {g_counts} "
-        f"(expected {g_want})")
+        f"{g['scoring_time']:.3f} s ({len(calls) - pipe_calls} sqrtm calls, "
+        f"{len(roots) - pipe_roots} new roots: its input "
+        f"{'is' if len(roots) == pipe_roots else 'is not'} one the pipeline rooted), call "
+        f"{g_wall:.3f} s; launches {g_counts} (expected {g_want})")
     if g_counts != g_want:
         raise AssertionError(f"calculate_global_scores launches {g_counts}, expected {g_want}")
     if not (rel <= SCORE_FID_RTOL and abs(g["is"] - anchor["is"]) <= SCORE_FID_RTOL * g["is"]
@@ -2887,6 +3027,497 @@ def check_unlearn(torch, np, ops, root: str, card: str, dev, vq_weights: str) ->
     return total
 
 
+def check_local_jl(torch, np, ops, dev, card: str) -> None:
+    """B5 at LOC_JL, the CelebA U-Net's per-sample gradients at batch 8: B*D
+    passes 2^31. The kernel against the plain version (its d-tile loop over
+    the window's coordinates) on a G that is zero outside the last
+    LOC_JL_WINDOW coordinates of every row, where the last row's offsets
+    b*D + d all pass 2^31; two runs bitwise; then timed on a random G of the
+    full shape beside its bound."""
+    b, d, p = LOC_JL
+    w0 = d - LOC_JL_WINDOW
+    if (b - 1) * d + w0 < 2**31 or b * d <= 2**31:
+        raise AssertionError("LOC_JL's window does not pass the 2^31 offset")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    g = torch.zeros(b, d, device=dev)
+    g[:, w0:] = torch.randn(b, LOC_JL_WINDOW, generator=gen, device=dev)
+    got = ops.jl_project_kernel(g, p, seed=3)
+    same = torch.equal(got, ops.jl_project_kernel(g, p, seed=3))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = torch.zeros(b, p, device=dev)
+    for d0 in range(w0, d, JL_PLAIN_TILE_D):
+        d1 = min(d, d0 + JL_PLAIN_TILE_D)
+        want += g[:, d0:d1] @ ops.rademacher_rows(3, d0, d1, p, dev)
+    want *= float(np.float32(1.0 / math.sqrt(p)))
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = (got - want).abs().amax(dim=1)
+    limit = JL_RTOL * g.abs().sum(dim=1) / math.sqrt(p)
+    ok = bool((err <= limit).all())
+    del g
+    torch.cuda.empty_cache()
+    g = torch.randn(b, d, generator=gen, device=dev)
+    ms = cuda_ms(torch, lambda: ops.jl_project_kernel(g, p), iters=3)
+    nbytes, flops = b * d * 4 + b * p * 4, 2.0 * b * d * p
+    bms, by = bound(nbytes, flops, "float32", JL_FLOPS)
+    log(f"[local] jl_projection B={b} D={d} P={p} float32 (B*D = {b * d} > 2^31): kernel vs "
+        f"plain on the last {LOC_JL_WINDOW} coordinates of every row (last row's offsets "
+        f"{(b - 1) * d + w0}..{b * d - 1}): max_abs_err={err.max().item():.3g} per row "
+        f"{[round(e, 7) for e in err.tolist()]} (tol {JL_RTOL} * |G_b|_1 / sqrt(P)), bitwise "
+        f"repeatable={same}; on {card}: kernel_ms={ms:.4f} at the full shape "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), plain_ms={plain_ms:.4f} (one call over the window "
+        f"alone, d-tile {JL_PLAIN_TILE_D}), bound_ms={bms:.4f} ({by}); library none (R would be "
+        f"{d * p * 4 / 1e12:.1f} TB)")
+    del g
+    torch.cuda.empty_cache()
+    if not (ok and same):
+        raise AssertionError(f"JL kernel at {LOC_JL} disagrees past the 2^31 offset: {err}")
+
+
+def check_local_vmapped(torch, F, ops, dev, card: str) -> None:
+    """The CelebA U-Net's attention (head dim 32 at its three levels) and
+    GroupNorms (its four resnet widths, G=32, SiLU, eps 1e-5) under
+    vmap(grad) at LOC_BATCH, as grad_features runs them: one launch of each
+    kernel for the batch; dq, dk, dv and dx against the plain versions on the
+    folded tensors (TOL), the per-sample dgamma and dbeta against the plain
+    backward's (B, C) partials (SUM_TOL); the vmap(grad) call event-timed
+    beside the plain forward and backward, the library call on the folded
+    tensors (SDPA's forward and autograd backward; F.group_norm + F.silu's,
+    whose gamma/beta gradient is the batch's sum, a yardstick) and the bound."""
+    from torch.func import grad, vmap
+
+    b = LOC_BATCH
+    one_attn = {"attention_fwd": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}
+    for sq, h, d in LOC_VMAP_ATTN:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q, k, v, w = (torch.randn(b, 1, sq, h, d, generator=gen, device=dev) for _ in range(4))
+
+        def f(q1, k1, v1, w1):
+            return (ops.dot_product_attention(q1, k1, v1) * w1).sum()
+
+        per_sample = vmap(grad(f, argnums=(0, 1, 2)))
+        reset_counts(ops)
+        got = per_sample(q, k, v, w)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        qf, kf, vf, wf = (t.reshape(-1, *t.shape[2:]) for t in (q, k, v, w))
+        want = ops.attention_bwd_plain(qf, kf, vf, wf)
+        cmp = [compare(a.reshape(-1, *a.shape[2:]), e, "float32") for a, e in zip(got, want)]
+        ms = cuda_ms(torch, lambda: per_sample(q, k, v, w), iters=5)
+        dev_ms = device_ms(torch, lambda: per_sample(q, k, v, w), iters=5)
+        plain_ms = cuda_ms(torch, lambda: (ops.attention_plain(qf, kf, vf),
+                                           ops.attention_bwd_plain(qf, kf, vf, wf)), iters=5)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (qf, kf, vf))
+
+        def sdpa():
+            out = F.scaled_dot_product_attention(qt, kt, vt)
+            return torch.autograd.grad(out, (qt, kt, vt), wf.transpose(1, 2))
+
+        lib_ms = cuda_ms(torch, sdpa, iters=5)
+        bms, by = bound(8 * b * sq * h * d * 4, 14.0 * b * h * sq * sq * d, "float32", TC_FLOPS)
+        log(f"[local] vmapped attention B={b} Sq=Skv={sq} H={h} D={d} float32 (CelebA, one "
+            f"sample each) under vmap(grad): max_abs_err dq={cmp[0][0]:.3g} dk={cmp[1][0]:.3g} "
+            f"dv={cmp[2][0]:.3g} (tol {TOL['float32']}); launches {counts}; on {card}: "
+            f"vmap(grad) call {ms:.4f} ms event, {dev_ms:.4f} ms device (every kernel of the "
+            f"call), plain_ms={plain_ms:.4f} library_ms="
+            f"{lib_ms:.4f} (SDPA forward and autograd backward) bound_ms={bms:.4f} ({by})")
+        if not (all(ok for _, ok in cmp) and all(counts[n] == c for n, c in one_attn.items())):
+            raise AssertionError(f"vmapped attention at Sq={sq}: {cmp} {counts}")
+        del q, k, v, w, got, want, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    one_gn = {"group_norm_fwd": 1, "group_norm_bwd": 1}
+    for c, hh, ww in LOC_VMAP_GN:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        x, w = (torch.randn(b, c, hh, ww, generator=gen, device=dev) for _ in range(2))
+        gamma, beta = (torch.randn(c, generator=gen, device=dev) * 0.2 + s for s in (1.0, 0.0))
+
+        def f(x1, gam, bet, w1):
+            return (ops.group_norm_silu(x1[None], gam, bet, groups=32, eps=1e-5, silu=True)
+                    * w1[None]).sum()
+
+        per_sample = vmap(grad(f, argnums=(0, 1, 2)), in_dims=(0, None, None, 0))
+        reset_counts(ops)
+        got = per_sample(x, gamma, beta, w)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+
+        def plain():
+            _, mean, rstd = ops.group_norm_silu_plain(x, gamma, beta, 32, 1e-5, True,
+                                                      torch.float32)
+            return ops.group_norm_silu_bwd_plain(x, w, gamma, beta, mean, rstd, 32, True)
+
+        want = plain()
+        cmp = [compare(got[0], want[0], "float32"), compare_sum(got[1], want[1]),
+               compare_sum(got[2], want[2])]
+        ms = cuda_ms(torch, lambda: per_sample(x, gamma, beta, w), iters=5)
+        dev_ms = device_ms(torch, lambda: per_sample(x, gamma, beta, w), iters=5)
+        plain_ms = cuda_ms(torch, plain, iters=5)
+        xt = x.detach().requires_grad_(True)
+        gt, bt = (t.detach().requires_grad_(True) for t in (gamma, beta))
+
+        def library():
+            out = F.silu(F.group_norm(xt, 32, gt, bt, eps=1e-5))
+            return torch.autograd.grad(out, (xt, gt, bt), w)
+
+        lib_ms = cuda_ms(torch, library, iters=5)
+        bms, by = bound(5 * x.numel() * 4 + 2 * 2 * b * c * 4, 20.0 * x.numel(), "float32")
+        log(f"[local] vmapped GroupNorm+SiLU B={b} C={c} {hh}x{ww} G=32 (cpg {c // 32}) float32 "
+            f"(CelebA, one sample each, a dgamma/dbeta per sample) under vmap(grad): "
+            f"max_abs_err dx={cmp[0][0]:.3g} (tol {TOL['float32']}) dgamma={cmp[1][0]:.3g} "
+            f"dbeta={cmp[2][0]:.3g} (tol {SUM_TOL}); launches {counts}; on {card}: vmap(grad) "
+            f"call {ms:.4f} ms event, {dev_ms:.4f} ms device, plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} "
+            f"(F.group_norm + F.silu forward and autograd backward on the batch, summed "
+            f"gamma/beta) bound_ms={bms:.4f} ({by})")
+        if not (all(ok for _, ok in cmp) and all(counts[n] == k for n, k in one_gn.items())):
+            raise AssertionError(f"vmapped GroupNorm at C={c}: {cmp} {counts}")
+        del x, w, got, want, xt
+        torch.cuda.empty_cache()
+
+
+def check_local(torch, np, ops, root: str, card: str, dev) -> dict:
+    """Per-example attribution and local behaviors on both unconditional
+    workloads, at full width: B5 past 2^31 and the CelebA kernels under
+    vmap(grad), then grad_features in VQ latents (every source, probe and
+    attn_full) and traks on [ldm]'s CelebA full anchor; sketch_quality on
+    CIFAR against [pipeline]'s DB; calculate_local_scores and
+    calculate_local_loss on CIFAR and CelebA ([unlearn]'s cli.main models:
+    the full model against shapley seed 1's). Each call between a counter
+    reset and a read with the launches reckoned from the specs. Returns the
+    summed launches."""
+    import torch.nn.functional as F
+
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        calculate_local_loss, calculate_local_scores, grad_features, sketch_quality, traks)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        GroupNormSiLU, SelfAttention2D)
+    from group_attribution_for_diffusion_models_tpu_torch.models.vqvae import VQVAE
+
+    check_local_jl(torch, np, ops, dev, card)
+    check_local_vmapped(torch, F, ops, dev, card)
+    cfg = get_config("celeba")
+    with torch.device("meta"):
+        unet, vqvae = UNet2D(cfg.unet), VQVAE(cfg.vqvae)
+    n_attn = sum(isinstance(m, SelfAttention2D) for m in unet.modules())
+    n_gn = sum(isinstance(m, GroupNormSiLU) for m in unet.modules())
+    n_enc = sum(isinstance(m, GroupNormSiLU) for m in vqvae.encoder.modules())
+    n_dec = sum(isinstance(m, GroupNormSiLU) for m in vqvae.decoder.modules())
+    del unet, vqvae
+    zero = unet_counts(0, 0)
+    no_routes = {name: 0 for name in ops.PLAIN_ROUTES}
+    total = dict(zero)
+    peaks = []
+
+    def call(label, fn, argv, want, want_routes=no_routes):
+        nonlocal total
+        out, wall, counts, routes, peak = timed_call(torch, ops, fn, argv)
+        expect(label, counts, routes, want, want_routes, phase="local")
+        total = add_counts(total, counts)
+        peaks.append(peak)
+        return out, wall, peak
+
+    def ldm(forwards, backwards=0, attention_only=0, jl=0):
+        counts = model_counts(n_attn, n_gn, forwards, backwards + attention_only)
+        counts["group_norm_bwd"] -= LOC_GN_SKIPPED * attention_only
+        counts["jl_projection"] = jl
+        return counts
+
+    ldm_dir = os.path.join(root, "ldm")
+    full_ldm = os.path.join(ldm_dir, "celeba", "retrain", "models", "full")
+    vq_weights = os.path.join(ldm_dir, "celeba", "vqvae", "vqvae_weights.npy")
+    store = os.path.join(root, "local", "celeba_feats.npz")
+    common = ["--dataset", "celeba", "--outdir", ldm_dir, "--vqvae_weights", vq_weights,
+              "--load", full_ldm, "--proj_dim", str(LOC_PROJ), "--num_timesteps",
+              str(LOC_TIMESTEPS), "--batch_size", str(LOC_BATCH), "--device", "cuda"]
+    n_batches = LOC_TRAIN // LOC_BATCH
+    runs = [  # (label, extra argv, store, expected launches)
+        ("train full", ["--source", "train", "--max_examples", str(LOC_TRAIN)], store,
+         ldm(n_batches * LOC_TIMESTEPS, n_batches * LOC_TIMESTEPS, jl=n_batches)),
+        ("generated full", ["--source", "generated", "--n_samples", str(LOC_BATCH),
+                            "--num_inference_steps", str(LOC_GEN_STEPS)], store,
+         ldm(LOC_GEN_STEPS + LOC_TIMESTEPS, LOC_TIMESTEPS, jl=1)),
+        ("train probe", ["--source", "train", "--max_examples", str(LOC_BATCH), "--grad_mode",
+                         "probe"], os.path.join(root, "local", "probe.npz"),
+         ldm(LOC_TIMESTEPS, attention_only=LOC_TIMESTEPS, jl=1)),
+        ("train attn_full", ["--source", "train", "--max_examples", str(LOC_BATCH),
+                             "--grad_mode", "attn_full"], os.path.join(root, "local", "attn.npz"),
+         ldm(LOC_TIMESTEPS, attention_only=LOC_TIMESTEPS, jl=1)),
+        ("generated_journey full", ["--source", "generated_journey", "--n_samples",
+                                    str(LOC_BATCH), "--num_inference_steps",
+                                    str(LOC_JOURNEY_STEPS)],
+         os.path.join(root, "local", "journey.npz"),
+         ldm(2 * LOC_JOURNEY_STEPS, LOC_JOURNEY_STEPS, jl=1)),
+    ]
+    for label, extra, path, want in runs:
+        out, wall, peak = call(f"grad_features celeba {label}", grad_features.main,
+                               common + extra + ["--save_path", path], want)
+        split = ", ".join(f"{t:.3f} = {g:.3f} + {j:.3f}" for t, g, j in zip(
+            out["batch_seconds"], out["grad_seconds"], out["jl_seconds"]))
+        log(f"[local] grad_features celeba {label}: features {out['features_shape']} from "
+            f"{out['grad_dim']} gradient coordinates in VQ latents, f32 on {card}: s/batch "
+            f"{split} (gradients + JL), sampling {out['sample_seconds']:.3f} s, call "
+            f"{wall:.3f} s, peak {peak:.2f} GiB")
+        feats = np.load(path)["train_features" if "train" in label else "gen_features"]
+        if not (np.isfinite(feats).all() and feats.std() > 0):
+            raise AssertionError(f"grad_features celeba ({label}): non-finite or constant rows")
+    attrs, wall, _ = call("traks celeba", traks.main, [
+        "--feature_store", store, "--save_dir", os.path.join(root, "local", "attrs")], zero)
+    for method, a in attrs.items():
+        log(f"[local] traks {method} on the latent store: {a.shape[0]} group attributions, "
+            f"range [{a.min():.4g}, {a.max():.4g}]")
+        if not np.isfinite(a).all():
+            raise AssertionError(f"traks {method}: attributions {a}")
+
+    # sketch_quality on CIFAR: [unlearn]'s full model, [pipeline]'s datamodel rows.
+    sk = LOC_SKETCH
+    cifar_full = os.path.join(root, "unlearn", "cifar", "retrain", "models", "full")
+    cifar_rem = os.path.join(root, "unlearn", "cifar", "retrain", "models", "shapley",
+                             f"shapley_seed={UNL_UNLEARN_SEED}")
+    n_b = sk["max_examples"] // TRAK_BATCH + 2  # the warm batch, train, one generated batch
+    steps = n_b * sk["timesteps"]
+    variants = 2 + len(sk["ks"])
+    report, wall, peak = call("sketch_quality cifar", sketch_quality.main, [
+        "--dataset", "cifar", "--load", cifar_full, "--outdir", os.path.join(root, "local"),
+        "--sketch_ks", *map(str, sk["ks"]), "--proj_dim", str(sk["proj"]), "--num_timesteps",
+        str(sk["timesteps"]), "--n_gen", str(sk["n_gen"]), "--batch_size", str(TRAK_BATCH),
+        "--num_inference_steps", str(sk["steps"]), "--max_examples", str(sk["max_examples"]),
+        "--test_db", os.path.join(root, "pipeline", "cifar_pipeline_db.jsonl"),
+        "--save_path", os.path.join(root, "local", "sketch_quality.json"), "--device", "cuda"],
+        unet_counts(sk["steps"] + variants * steps, steps, jl=variants * n_b,
+                    attention_only=(variants - 1) * steps))
+    log(f"[local] sketch_quality cifar ({report['n_train']} train x {report['n_gen']} "
+        f"generated, {sk['timesteps']} timesteps, P={sk['proj']}) f32 on {card}: call "
+        f"{wall:.3f} s, peak {peak:.2f} GiB; timings {report['timings']}; "
+        + "; ".join(f"{n}: rho example/group vs full {r['spearman_example_vs_full']:.4f}/"
+                    f"{r['spearman_group_vs_full']:.4f}, vs attn_full "
+                    f"{r['spearman_example_vs_attn_full']:.4f}/"
+                    f"{r['spearman_group_vs_attn_full']:.4f}, lds {r['lds']:.2f}"
+                    for n, r in report["variants"].items()))
+    v = report["variants"]
+    if not (set(v) == {"full", "attn_full", *(f"probe_k{k}" for k in sk["ks"])}
+            and v["full"]["spearman_example_vs_full"] > 0.999
+            and all(math.isfinite(r["lds"]) for r in v.values())):
+        raise AssertionError(f"sketch_quality report {v}")
+
+    # The local behaviors: CIFAR, then CelebA in VQ latents (decoded to pixels).
+    n, noises = LOC_LOCAL, LOC_NOISES
+    ldm_rem = os.path.join(root, "unlearn", "celeba", "retrain", "models", "shapley",
+                           f"shapley_seed={UNL_UNLEARN_SEED}")
+    for name, full_dir, rem_dir, extra in (
+            ("cifar", cifar_full, cifar_rem, []),
+            ("celeba", full_ldm, ldm_rem, ["--vqvae_weights", vq_weights])):
+        k = LOC_LOCAL_STEPS[name]
+        argv = ["--dataset", name, "--full_model_dir", full_dir, "--removal_model_dir", rem_dir,
+                "--n_samples", str(n), "--num_inference_steps", str(k), "--outdir",
+                os.path.join(root, "local"), "--device", "cuda", *extra]
+        latent = name == "celeba"
+        if latent:
+            want_s = add_counts(ldm(2 * k + noises), model_counts(0, n_dec, 2),
+                                model_counts(0, n_enc, 1))
+            routes_s = {"attention_plain_fwd": 3, "attention_plain_bwd": 0}
+            want_l = add_counts(ldm(4 * k), model_counts(0, n_dec, 2 * k))
+            routes_l = {"attention_plain_fwd": 2 * k, "attention_plain_bwd": 0}
+        else:
+            want_s, routes_s = unet_counts(2 * k + noises, 0), no_routes
+            want_l, routes_l = unet_counts(4 * k, 0), no_routes
+        out, wall, peak = call(f"calculate_local_scores {name}", calculate_local_scores.main,
+                               argv + ["--n_noises", str(noises)], want_s, routes_s)
+        row = out["row"]
+        log(f"[local] calculate_local_scores {name} ({n} paired samples x {k} DDIM steps, "
+            f"{noises} loss draws) f32 on {card}: generation {out['generation_seconds']:.3f} s, "
+            f"loss {out['loss_seconds']:.3f} s, call {wall:.3f} s, peak {peak:.2f} GiB; avg_mse "
+            f"{row['avg_mse']:.5f}, avg_nrmse {row['avg_nrmse']:.4f}, avg_ssim "
+            f"{row['avg_ssim']:.4f}, avg_total_loss {row['avg_total_loss']:.5f}, "
+            f"{len(row['removed_idx'])} removed")
+        vals = [row[key] for key in row if key.startswith(("avg_", "generated_image_"))]
+        if not (len(vals) == 4 + 4 * n and all(math.isfinite(x) for x in vals)
+                and row["removed_idx"]):
+            raise AssertionError(f"calculate_local_scores {name}: row {row}")
+        out, wall, peak = call(f"calculate_local_loss {name}", calculate_local_loss.main, argv,
+                               want_l, routes_l)
+        row = out["row"]
+        log(f"[local] calculate_local_loss {name} ({n} samples, {k} steps, x0-hat at each"
+            f"{', decoded' if latent else ''}) f32 on {card}: call {wall:.3f} s, peak "
+            f"{peak:.2f} GiB; per_step_mse {np.round(row['per_step_mse'], 5).tolist()}, "
+            f"per_step_ssim {np.round(row['per_step_ssim'], 4).tolist()}")
+        if not (len(row["per_step_mse"]) == len(row["timesteps"]) == k
+                and all(math.isfinite(x) for x in row["per_step_mse"] + row["per_step_ssim"])):
+            raise AssertionError(f"calculate_local_loss {name}: row {row}")
+    log(f"[local] launches of the phase {total}, peak of its calls {max(peaks):.2f} GiB")
+    return total
+
+
+def check_data(torch, np, ops, root: str, data_root: str, card: str, dev) -> dict:
+    """Workload 1's other datasets at full size from their stand-ins, the
+    ResNet-18 regroup tower card vs CPU and timed, cifar100_new regrouped
+    from it, and the MNIST U-Net: B1-B4 at its shapes against their plain
+    versions, cli.main and generate_samples at full width, each call between
+    a counter reset and a read with the launches reckoned from the spec.
+    Returns the summed launches of the main paths."""
+    import torch.nn.functional as F
+
+    from group_attribution_for_diffusion_models_tpu_torch.cli import generate_samples
+    from group_attribution_for_diffusion_models_tpu_torch.cli import main as main_cli
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.data import create_dataset
+    from group_attribution_for_diffusion_models_tpu_torch.data import datasets as datasets_module
+    from group_attribution_for_diffusion_models_tpu_torch.data.datasets import (
+        CIFAR100_NEW_GROUPS)
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.models import resnet as resnet_module
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        GroupNormSiLU, SelfAttention2D)
+    from group_attribution_for_diffusion_models_tpu_torch.models.resnet import (
+        init_resnet18, resize_bilinear, resnet18_embed)
+
+    for name, n_images, n_labels in (("cifar2", 2 * CIFAR_TRAIN_IMAGES // 10, 2),
+                                     ("cifar100", CIFAR100_TRAIN_IMAGES // 5, 20),
+                                     ("cifar100_f", 10_100, 100),
+                                     ("mnist", MNIST_TRAIN_IMAGES, 10)):
+        t0 = time.perf_counter()
+        ds = create_dataset(name)
+        secs = time.perf_counter() - t0
+        counts = np.bincount(ds.labels)
+        log(f"[data] create_dataset {name}: images {ds.images.shape} {ds.images.dtype} in "
+            f"[{ds.images.min():.3f}, {ds.images.max():.3f}], {len(counts)} labels, per label "
+            f"{counts.min()}..{counts.max()}, {secs:.3f} s")
+        # cifar2 keeps two of the stand-in's uniformly drawn classes: about 20%.
+        if not (len(counts) == n_labels and ds.images.shape[1:3] == (32, 32)
+                and (abs(len(ds) - n_images) <= 0.05 * n_images if name == "cifar2"
+                     else len(ds) == n_images)):
+            raise AssertionError(f"create_dataset {name}: {ds.images.shape}, {counts}")
+
+    # The ResNet-18 regroup tower, torchvision's init from a seed: card vs CPU, timed.
+    tower = init_resnet18(seed=0).eval().requires_grad_(False)
+    flops = tower_flops(torch, tower, 224)
+    x = np.random.default_rng(3).uniform(0, 1, (DATA_RESNET_CHECK, 32, 32, 3)).astype(np.float32)
+    want = resnet18_embed(tower, x)
+    tower.to(dev)
+    got = resnet18_embed(tower, x)
+    err = float(np.abs(got - want).max())
+    tol = TOWER_TOL * max(1.0, float(np.abs(want).max()))
+    xb = torch.rand(DATA_RESNET_BATCH, 3, 32, 32, device=dev)
+    with torch.no_grad():
+        ms = cuda_ms(torch, lambda: tower(resize_bilinear(xb, 224)), iters=5)
+    bms, by = bound(DATA_RESNET_BATCH * 3 * 32 * 32 * 4, DATA_RESNET_BATCH * flops, "float32")
+    log(f"[data] ResNet-18 ({sum(p.numel() for p in tower.parameters())} params, torchvision "
+        f"init, seed 0) embeddings of {DATA_RESNET_CHECK} images 32 -> 224, card vs CPU: "
+        f"max_abs_err={err:.3g} (tol {tol:.3g}); batch {DATA_RESNET_BATCH} f32 on {card}: "
+        f"{ms:.4f} ms a batch, {ms / DATA_RESNET_BATCH:.4f} ms an image "
+        f"({flops / 1e9:.3f} GFLOP an image, {DATA_RESNET_BATCH * flops / ms / 1e9:.2f} "
+        f"TFLOP/s), bound {bms / DATA_RESNET_BATCH:.4f} ms an image ({by}, f32 FMA)")
+    if not err <= tol:
+        raise AssertionError("the ResNet-18 tower on the card disagrees with the CPU")
+    del xb
+
+    # cifar100_new: the 10,000 animal images embedded on the card and k-means'd on
+    # the host into 40 groups, through create_dataset with the tower's weights file.
+    weights = os.path.join(root, "data", "resnet18.pth")
+    os.makedirs(os.path.dirname(weights))
+    torch.save({k: v.cpu() for k, v in tower.state_dict().items()}, weights)
+    del tower
+    os.environ["GADM_RESNET18_WEIGHTS"] = weights
+    seconds = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if name == "embedding":
+                torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    embed, regroup = resnet_module.resnet18_embed, datasets_module.cifar100_regroup
+    resnet_module.resnet18_embed = timed("embedding", embed)
+    datasets_module.cifar100_regroup = timed("k-means", regroup)
+    try:
+        t0 = time.perf_counter()
+        ds = create_dataset("cifar100_new", device=dev)
+        secs = time.perf_counter() - t0
+    finally:
+        resnet_module.resnet18_embed, datasets_module.cifar100_regroup = embed, regroup
+    cache = os.path.join(data_root, "cifar100_new_targets.npy")
+    sizes = np.bincount(ds.labels, minlength=CIFAR100_NEW_GROUPS)
+    log(f"[data] create_dataset cifar100_new: {len(ds)} images in {len(sizes)} k-means groups "
+        f"(sizes {sizes.min()}..{sizes.max()}), {secs:.3f} s: ResNet-18 embedding of the "
+        f"{len(ds)} images on {card} {seconds['embedding']:.3f} s, k-means (40 groups, 10 "
+        f"restarts, host) {seconds['k-means']:.3f} s; the cache written")
+    if not (len(ds) == CIFAR100_TRAIN_IMAGES // 5 and len(sizes) == CIFAR100_NEW_GROUPS
+            and sizes.min() > 0 and os.path.exists(cache)
+            and np.array_equal(np.load(cache), ds.labels)):
+        raise AssertionError("cifar100_new was not regrouped into 40 groups and cached")
+    del os.environ["GADM_RESNET18_WEIGHTS"]
+
+    # The MNIST U-Net: kernels at its shapes, then cli.main and generate_samples.
+    spec = get_config("mnist").unet
+    with torch.device("meta"):
+        unet = UNet2D(spec)
+    dims = [m.to_q.out_features // m.num_heads for m in unet.modules()
+            if isinstance(m, SelfAttention2D)]
+    n_attn = sum(ops.kernel_takes(d) for d in dims)  # the mid block's D=512: the plain route
+    n_plain = len(dims) - n_attn
+    n_gn = sum(isinstance(m, GroupNormSiLU) for m in unet.modules())
+    log(f"[data] MNIST U-Net {sum(p.numel() for p in unet.parameters())} params, attention "
+        f"head dims {dims} ({n_attn} for the kernels, {n_plain} on the plain route), {n_gn} "
+        f"GroupNorms a forward")
+    del unet
+    census = gn_census_of(torch, spec, device=dev)
+    if sum(c[-1] for c in census) != n_gn:
+        raise AssertionError("the census disagrees with the MNIST U-Net's GroupNorms")
+    check_attention(torch, F, ops, dev, MNIST_ATTN_SHAPES, [], "data", dtypes=("float32",))
+    check_attention_bwd(torch, F, ops, dev, MNIST_ATTN_SHAPES, [], "data", dtypes=("float32",))
+    check_gn_census(torch, ops, dev, census, label="data", batch=DATA_MNIST_BATCH,
+                    dtypes=("float32",), library=True, what="MNIST U-Net pass")
+
+    outdir = os.path.join(root, "data")
+    total = unet_counts(0, 0)
+    out, wall, counts, routes, peak = timed_call(torch, ops, main_cli.main, [
+        "--dataset", "mnist", "--outdir", outdir, "--method", "retrain", "--removal_dist",
+        "full", "--training_steps", str(DATA_MNIST_STEPS), "--batch_size",
+        str(DATA_MNIST_BATCH), "--ckpt_freq", "0", "--sample_freq", "0", "--device", "cuda"])
+    expect("main mnist", counts, routes,
+           model_counts(n_attn, n_gn, DATA_MNIST_STEPS, DATA_MNIST_STEPS),
+           {"attention_plain_fwd": n_plain * DATA_MNIST_STEPS,
+            "attention_plain_bwd": n_plain * DATA_MNIST_STEPS}, "data")
+    total = add_counts(total, counts)
+    fit_s = out["train_seconds"] - out["ckpt_seconds"]
+    log(f"[data] cli.main mnist retrain {DATA_MNIST_STEPS} steps at batch {out['batch_size']} "
+        f"f32 on {card}: training {out['train_seconds']:.3f} s ({DATA_MNIST_STEPS / fit_s:.3f} "
+        f"member-steps/s without the checkpoint's {out['ckpt_seconds']:.3f} s, the first step "
+        f"with warm-up), call {wall:.3f} s, peak {peak:.2f} GiB, loss {out['loss']:.5f}")
+    if not (out["steps_run"] == DATA_MNIST_STEPS and math.isfinite(out["loss"])):
+        raise AssertionError("cli.main on mnist did not train")
+    pngs = os.path.join(outdir, "samples")
+    g, wall, counts, routes, peak = timed_call(torch, ops, generate_samples.main, [
+        "--dataset", "mnist", "--load", out["model_dir"], "--sample_outdir", pngs,
+        "--n_samples", str(DATA_MNIST_SAMPLES), "--batch_size", str(DATA_MNIST_SAMPLES),
+        "--num_inference_steps", str(DATA_MNIST_SAMPLE_STEPS), "--device", "cuda"])
+    expect("generate_samples mnist", counts, routes,
+           model_counts(n_attn, n_gn, DATA_MNIST_SAMPLE_STEPS),
+           {"attention_plain_fwd": n_plain * DATA_MNIST_SAMPLE_STEPS,
+            "attention_plain_bwd": 0}, "data")
+    total = add_counts(total, counts)
+    from PIL import Image
+
+    names = sorted(f for f in os.listdir(pngs) if f.endswith(".png"))
+    imgs = np.stack([np.asarray(Image.open(os.path.join(pngs, f))) for f in names])
+    log(f"[data] generate_samples mnist {DATA_MNIST_SAMPLES} x {DATA_MNIST_SAMPLE_STEPS} DDIM "
+        f"steps f32 on {card}: {g['batch_seconds'][0]:.3f} s a batch, call {wall:.3f} s, peak "
+        f"{peak:.2f} GiB; {len(names)} PNGs {imgs.shape[1:]} {imgs.dtype}, std {imgs.std():.2f}")
+    if not (len(names) == DATA_MNIST_SAMPLES and imgs.shape[1:] == (32, 32)
+            and imgs.std() > 0):
+        raise AssertionError("generate_samples did not write the 32x32 gray PNGs")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2905,6 +3536,8 @@ def run(torch, tmp: str) -> int:
     # The port reads its dataset root once, on import: the stand-in goes first.
     data_root = os.path.join(tmp, "datasets")
     write_cifar_standin(data_root, CIFAR_TRAIN_IMAGES)
+    write_cifar100_standin(data_root)
+    write_mnist_standin(data_root)
     write_celeba_standin(data_root)
     write_artbench_standin(data_root)
     os.environ["GADM_DATASET_DIR"] = data_root
@@ -2931,7 +3564,8 @@ def run(torch, tmp: str) -> int:
     libs = _build.build()
     log(f"[build] {len(libs)} libraries from csrc/ in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(os.path.basename(p) for p in libs.values())
-        + f"; CIFAR-10 ({CIFAR_TRAIN_IMAGES} images), CelebA-HQ ({LDM_IMAGES} images) and "
+        + f"; CIFAR-10 ({CIFAR_TRAIN_IMAGES} images), CIFAR-100 ({CIFAR100_TRAIN_IMAGES}), "
+        f"MNIST ({MNIST_TRAIN_IMAGES}), CelebA-HQ ({LDM_IMAGES} images) and "
         f"ArtBench-style ({TTI_ARTISTS * TTI_PER_ARTIST} images) stand-ins written in "
         f"{data_s:.1f} s")
 
@@ -3033,12 +3667,19 @@ def run(torch, tmp: str) -> int:
     unlearn_counts = check_unlearn(torch, np, ops, tmp, card, dev, os.path.join(
         tmp, "ldm", "celeba", "vqvae", "vqvae_weights.npy"))
     log(f"[unlearn] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    local_counts = check_local(torch, np, ops, tmp, card, dev)
+    log(f"[local] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data_counts = check_data(torch, np, ops, tmp, data_root, card, dev)
+    log(f"[data] phase {time.perf_counter() - t0:.1f} s")
 
-    # launches: the eight main paths, sampling, training, TRAK, the estimation
+    # launches: the ten main paths, sampling, training, TRAK, the estimation
     # loop, the sample behaviors, the latent-diffusion workload, the
-    # text-to-image tier and the single-model jobs.
+    # text-to-image tier, the single-model jobs, per-example attribution and
+    # local behaviors, and workload 1's other datasets.
     launches = add_counts(sample_counts, train_counts, trak_counts, pipe_counts, score_counts,
-                          ldm_counts, tti_counts_, unlearn_counts)
+                          ldm_counts, tti_counts_, unlearn_counts, local_counts, data_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

@@ -8,7 +8,8 @@ banzhaf attributions from JSONL behavior rows, or score gradient features
 ``group_labels``), or read the saved similarity attributions (clip_score,
 pixel_dist: the ``.npy`` that ``cli.similarity_baselines`` writes with
 ``--baseline clip`` / ``pixel``), and save the per-unit attribution vector
-and its ranking as .npy. Host numpy, no device.
+and its ranking as .npy. Host numpy; ``--device`` runs only the ResNet-18
+of a cifar100_new regroup.
 
 The JAX CLI offers clip_score and pixel_dist but has no branch for them (a
 KeyError); the port reads them from the saved scores (ROADMAP C4).
@@ -50,6 +51,9 @@ def parse_args(argv=None):
     parser.add_argument("--agg_mode", type=str, default="sum",
                         choices=["sum", "mean", "max"])
     parser.add_argument("--save_path", type=str, required=True)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the ResNet-18 that regroups cifar100_new "
+                             "when its group labels are not cached")
     return parser.parse_args(argv)
 
 
@@ -58,7 +62,7 @@ def fit_from_rows(args) -> np.ndarray:
     (``--dataset``, ``--method``[, ``--exp_name``]); the *_paired rows pool
     with their base distribution."""
     if args.num_units is None:
-        dataset = create_dataset(args.dataset, train=True)
+        dataset = create_dataset(args.dataset, train=True, device=args.device)
         num_units = dataset.num_classes if args.by_class else len(dataset)
         labels = dataset.labels if args.by_class else None
     else:

@@ -138,7 +138,7 @@ def main(argv=None):
     if args.per_class:
         if not args.sample_dir:
             raise SystemExit("--per_class needs --sample_dir with class subdirs")
-        ref = create_dataset(args.dataset, train=True)
+        ref = create_dataset(args.dataset, train=True, device=device)
         ref_imgs = reference_images(ref, len(ref))
         ref_by_class = {str(c): ref_imgs[ref.labels == c] for c in np.unique(ref.labels)}
         t0 = time.time()
@@ -161,7 +161,7 @@ def main(argv=None):
 
     t0 = time.time()
     gen_feats, gen_logits = extract(samples)
-    ref = create_dataset(args.dataset, train=True)
+    ref = create_dataset(args.dataset, train=True, device=device)
     n_ref = max(args.n_samples, 2048)
     tag = inception_tag(args.inception_weights)
     ref_feats = None

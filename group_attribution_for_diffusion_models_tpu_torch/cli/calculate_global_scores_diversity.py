@@ -132,8 +132,8 @@ def main(argv=None):
                 return pool3(images)[0]
         gen_emb = extract(samples)
         if ref_emb is None:
-            ref_emb = extract(reference_images(create_dataset(args.dataset, train=True),
-                                               4 * args.n_samples))
+            ref = create_dataset(args.dataset, train=True, device=device)
+            ref_emb = extract(reference_images(ref, 4 * args.n_samples))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds["tower"] = time.perf_counter() - t0

@@ -7,7 +7,8 @@ method (retrain) and the efficient method (sparse-FT / gd), the Pearson and
 Spearman correlation of their behaviors, matched by removal seed, the
 fidelity number behind the paper's "sFT ~= retrain" claim; with
 ``--attributions``, also the correlation of the KernelSHAP attribution
-vectors fit from each method's rows. Host numpy and scipy, no device.
+vectors fit from each method's rows. Host numpy and scipy; ``--device`` runs
+only the ResNet-18 of a cifar100_new regroup.
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ def parse_args(argv=None):
                              "to behaviors.max()")
     parser.add_argument("--v0", type=float, default=None,
                         help="null-model behavior anchor (see --v1)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the ResNet-18 that regroups cifar100_new "
+                             "when its group labels are not cached")
     return parser.parse_args(argv)
 
 
@@ -92,7 +96,7 @@ def main(argv=None):
     if args.attributions:
         if args.dataset is None:
             raise SystemExit("--attributions requires --dataset")
-        dataset = create_dataset(args.dataset, train=True)
+        dataset = create_dataset(args.dataset, train=True, device=args.device)
         if args.by_class:
             num_units, labels = dataset.num_classes, dataset.labels
         else:

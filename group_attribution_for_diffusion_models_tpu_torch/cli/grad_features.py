@@ -20,8 +20,14 @@ Each batch draws its samples from a generator seeded from (seed, batch) and
 its feature noise (q-sample and output-function noise) from one seeded from
 (seed + 1, batch): a generated image's features never reuse the latent it
 was sampled from. Runs on CUDA unless ``--device cpu`` is given, with TF32
-off. Latent (VQ-VAE) workloads raise until the LDM slice. `main` returns a
-summary: shapes, seconds per batch and kernel launches.
+off. `main` returns a summary: shapes, seconds per batch and kernel launches.
+
+Latent (VQ-VAE) workloads differentiate the U-Net in the latent space it
+was trained in, as the JAX CLI does: the train source reads the dataset's
+VQ latents through the tagged cache (``cli/common.py::dataset_latents``,
+``--vqvae_weights`` else the seeded random tower) times the VQ-VAE's
+scaling factor; the generated source takes the sampler's raw final latents
+(not decoded, not rescaled); the journey its latent trajectory.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -43,9 +50,10 @@ from ..data import create_dataset
 from ..diffusion import make_schedule, sample_loop, sample_with_trajectory
 from ..models import UNet2D
 from ..models.lora import attention_params_filter, probe_sketch_init
+from ..ops.jl_projection import jl_project
 from ..utils.ckpt import load_checkpoint
 from ..utils.device import resolve_device
-from .common import add_common_args, checkpoint_spec, config_for
+from .common import add_common_args, checkpoint_spec, config_for, dataset_latents
 from .generate_samples import batch_generator
 
 
@@ -102,15 +110,16 @@ def _save_store(path: str, payload: dict) -> None:
 
 def main(argv=None):
     """Run the CLI; returns {"source", "features_shape", "grad_dim",
-    "batch_seconds", "sample_seconds", "launches", "save_path"}."""
+    "batch_seconds", "grad_seconds", "jl_seconds", "sample_seconds",
+    "launches", "save_path"}: a batch's seconds split into its timestep-mean
+    gradients and their JL projection, each to a device synchronise."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = config_for(args.dataset)
-    if cfg.vqvae is not None:
-        raise NotImplementedError("latent (VQ-VAE) workloads are not ported yet")
+    latent = cfg.vqvae is not None
     spec = checkpoint_spec(args.load, cfg.unet)
     state = load_checkpoint(args.load)
     model = _load_model(state, "params", spec, device)
@@ -139,7 +148,21 @@ def main(argv=None):
             sample_s += time.perf_counter() - t0
             yield out
 
-    batch_seconds = []
+    batch_seconds, grad_seconds = [], []
+
+    def projected(gradients) -> np.ndarray:
+        """One batch's features: `gradients()` (its timestep-mean per-sample
+        gradients), then their projection, each timed."""
+        t0 = time.perf_counter()
+        g = gradients()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        out = jl_project(g, args.proj_dim, seed=args.proj_seed).cpu().numpy()
+        batch_seconds.append(time.perf_counter() - t0)
+        grad_seconds.append(t1 - t0)
+        return out
+
     if args.source == "generated_journey":
         # Journey TRAK: gradients at the latents the sampler visited (full
         # gradients whatever --grad_mode says, as in the JAX CLI).
@@ -148,15 +171,14 @@ def main(argv=None):
             proj_dim=args.proj_dim, proj_seed=args.proj_seed)
         grad_dim, feats = journey_fn.dim, []
         for b, (_, traj, ts) in enumerate(sample_batches(sample_with_trajectory)):
-            t0 = time.perf_counter()
-            out = journey_fn(traj, ts, generator=feature_generator(b))
-            feats.append(out.cpu().numpy())
-            batch_seconds.append(time.perf_counter() - t0)
+            feats.append(projected(lambda: journey_fn.mean_gradients(
+                traj, ts, generator=feature_generator(b))))
         feats = np.concatenate(feats)
         # group_labels belong to the train rows; generated features never touch them.
         _save_store(args.save_path, {"gen_features": feats})
         print(f"journey gen_features {feats.shape} -> {args.save_path}")
-        return _summary(args, feats, grad_dim, batch_seconds, sample_s, launches0)
+        return _summary(args, feats, grad_dim, batch_seconds, grad_seconds, sample_s,
+                        launches0)
 
     sketch_probe = params_filter = None
     if args.grad_mode == "probe":
@@ -179,9 +201,17 @@ def main(argv=None):
         sketch_probe=sketch_probe, params_filter=params_filter)
 
     if args.source == "train":
-        dataset = create_dataset(args.dataset, train=True)
-        images = dataset.images.transpose(0, 3, 1, 2)  # NHWC -> NCHW, a view
+        dataset = create_dataset(args.dataset, train=True, device=device)
+        images = dataset.images
+        if latent:
+            latents, _, _ = dataset_latents(args, cfg, dataset, device)
+            images = latents * cfg.vqvae.scaling_factor
+        images = images.transpose(0, 3, 1, 2)  # NHWC -> NCHW, a view
         labels = dataset.labels
+    elif latent:  # the raw final latents
+        raw = partial(sample_loop, postprocess=False)
+        images = torch.cat(list(sample_batches(raw))).cpu().numpy()
+        labels = np.zeros(len(images), np.int64)
     else:
         # [0, 1] pixels back to model space.
         images = torch.cat([x * 2.0 - 1.0 for x in sample_batches(sample_loop)]).cpu().numpy()
@@ -198,11 +228,9 @@ def main(argv=None):
     feats = open_memmap(f"{stem}_{args.source}_mm.npy", mode="w+", dtype=np.float32,
                         shape=(len(images), args.proj_dim))
     for b, i in enumerate(range(0, len(images), args.batch_size)):
-        t0 = time.perf_counter()
         batch = torch.from_numpy(np.ascontiguousarray(images[i:i + args.batch_size]))
-        out = feat_fn(batch.to(device), generator=feature_generator(b))
-        feats[i:i + args.batch_size] = out.cpu().numpy()
-        batch_seconds.append(time.perf_counter() - t0)
+        feats[i:i + args.batch_size] = projected(lambda: feat_fn.mean_gradients(
+            batch.to(device), generator=feature_generator(b)))
         print(f"{min(i + args.batch_size, len(images))}/{len(images)} examples "
               f"({batch_seconds[-1]:.3f} s)", flush=True)
     feats.flush()
@@ -217,14 +245,16 @@ def main(argv=None):
         _save_store(args.save_path, {"gen_features": feats})
     kind = "train_features" if args.source == "train" else "gen_features"
     print(f"{kind} {feats.shape} -> {args.save_path}")
-    return _summary(args, feats, feat_fn.dim, batch_seconds, sample_s, launches0)
+    return _summary(args, feats, feat_fn.dim, batch_seconds, grad_seconds, sample_s,
+                    launches0)
 
 
-def _summary(args, feats, grad_dim, batch_seconds, sample_s, launches0) -> dict:
+def _summary(args, feats, grad_dim, batch_seconds, grad_seconds, sample_s, launches0) -> dict:
     launches = {k: v - launches0[k] for k, v in ops.launch_counts().items()}
     return {"source": args.source, "features_shape": feats.shape, "grad_dim": grad_dim,
-            "batch_seconds": batch_seconds, "sample_seconds": sample_s,
-            "launches": launches, "save_path": args.save_path}
+            "batch_seconds": batch_seconds, "grad_seconds": grad_seconds,
+            "jl_seconds": [t - g for t, g in zip(batch_seconds, grad_seconds)],
+            "sample_seconds": sample_s, "launches": launches, "save_path": args.save_path}
 
 
 if __name__ == "__main__":

@@ -118,7 +118,7 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize(device)
 
     synthetic = args.dataset.startswith("synthetic")
-    dataset = create_dataset(args.dataset, train=True)
+    dataset = create_dataset(args.dataset, train=True, device=device)
     if synthetic:
         files = [f"artist-{lab}_work_{i}.jpg" for i, lab in enumerate(dataset.labels)]
         spec, sched_spec = tiny_sd_spec(dataset.images.shape[1]), SchedulerSpec()

@@ -104,7 +104,7 @@ def main(argv=None):
     args = parse_args(argv)
     resolve_device(args.device)
     if args.num_units is None:
-        dataset = create_dataset(args.dataset, train=True)
+        dataset = create_dataset(args.dataset, train=True, device=args.device)
         if args.by_class:
             num_units = int(len(np.unique(dataset.labels)))
             labels = dataset.labels

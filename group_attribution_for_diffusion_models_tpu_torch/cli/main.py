@@ -193,7 +193,7 @@ def main(argv=None):
         args.datamodel_alpha if args.removal_dist == "datamodel" else None,
     )
     os.makedirs(model_dir, exist_ok=True)
-    dataset = create_dataset(args.dataset, train=True)
+    dataset = create_dataset(args.dataset, train=True, device=device)
     remaining_idx, removed_idx = setup_removal(args, dataset)
     save_removal_indices(model_dir, remaining_idx, removed_idx)
     # Gradient ascent unlearns on the removed subset (reference main.py:298-300).

@@ -78,7 +78,7 @@ def main(argv=None):
         model.load_state_dict(params)
         importance = taylor_importance(
             model.to(device), make_schedule(cfg.scheduler, device),
-            create_dataset(args.dataset, train=True).images,
+            create_dataset(args.dataset, train=True, device=device).images,
             num_timesteps=cfg.scheduler.num_train_timesteps,
             timestep_stride=args.timestep_stride,
             loss_threshold=args.thr if args.pruner == "diff-pruning" else None,

@@ -96,7 +96,7 @@ def main(argv=None):
     if args.training_steps is None:
         args.training_steps = config_for(args.dataset).train.training_steps.get("retrain", 1000)
 
-    labels = create_dataset(args.dataset, train=True).labels
+    labels = create_dataset(args.dataset, train=True, device=args.device).labels
     n_classes = int(labels.max()) + 1
     if n_classes > 12:
         raise SystemExit(

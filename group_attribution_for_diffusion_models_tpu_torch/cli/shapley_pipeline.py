@@ -166,10 +166,12 @@ def _anchor(args, db, steps):
     return train_ensemble.main(argv)
 
 
-def attribution_units(dataset: str, by_class: bool) -> Tuple[int, Optional[np.ndarray]]:
+def attribution_units(dataset: str, by_class: bool,
+                      device="cuda") -> Tuple[int, Optional[np.ndarray]]:
     """(number of attribution units, labels): classes with --by_class (the
-    image-level remaining_idx collapses to a class mask), else images."""
-    data = create_dataset(dataset, train=True)
+    image-level remaining_idx collapses to a class mask), else images.
+    `device` runs a cifar100_new regroup."""
+    data = create_dataset(dataset, train=True, device=device)
     if by_class:
         return int(data.labels.max()) + 1, data.labels
     return len(data), None
@@ -328,7 +330,7 @@ def main(argv=None):
     seconds = {key: sum(c[f"{key}_seconds"] for c in calls)
                for key in ("train", "sample", "tower", "fid", "encode")}
 
-    n_units, labels = attribution_units(args.dataset, args.by_class)
+    n_units, labels = attribution_units(args.dataset, args.by_class, args.device)
     out = fit_stage(db, args.dataset, args.behavior, args.fit_dist, args.method,
                     (fit_lo, fit_hi), (test_lo, test_hi), fit_steps, test_steps,
                     n_units, labels)

@@ -58,7 +58,7 @@ def main(argv=None) -> np.ndarray:
     args = parse_args(argv)
     device = resolve_device(args.device)
     tiny = args.dataset.startswith("synthetic")
-    train = create_dataset(args.dataset, train=True)
+    train = create_dataset(args.dataset, train=True, device=device)
     train_imgs = train.images / 2.0 + 0.5
     labels = train.labels
     if train.names is not None and all(

@@ -247,7 +247,7 @@ def main(argv=None):
     )
     batch_size = args.batch_size or cfg.train.batch_size
 
-    dataset = create_dataset(args.dataset, train=True)
+    dataset = create_dataset(args.dataset, train=True, device=device)
     seeds = list(range(args.seed_start, args.seed_start + args.num_seeds))
     db = args.db or os.path.join(args.outdir, f"{args.dataset}_train_db.jsonl")
 

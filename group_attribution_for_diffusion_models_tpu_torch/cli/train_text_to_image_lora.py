@@ -281,7 +281,7 @@ def main(argv=None) -> Dict:
             torch.cuda.synchronize(device)
 
     # --- data + groups ------------------------------------------------------
-    dataset = create_dataset(args.dataset, train=True)
+    dataset = create_dataset(args.dataset, train=True, device=device)
     if synthetic:
         files = [f"artist-{lab}_work_{i}.jpg" for i, lab in enumerate(dataset.labels)]
         spec = tiny_sd_spec(dataset.images.shape[1])

@@ -104,7 +104,7 @@ def main(argv=None):
     cfg = config_for(args.dataset)
     if cfg.vqvae is None:
         raise SystemExit(f"dataset {args.dataset!r} has no vqvae spec (not an LDM workload)")
-    dataset = create_dataset(args.dataset, train=True)
+    dataset = create_dataset(args.dataset, train=True, device=device)
     images = torch.from_numpy(dataset.images).permute(0, 3, 1, 2).contiguous().to(device)
     n = images.shape[0]
     batch = min(args.batch_size, n)

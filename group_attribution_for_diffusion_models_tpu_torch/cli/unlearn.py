@@ -149,7 +149,7 @@ def main(argv=None):
     training_steps = args.training_steps or cfg.train.training_steps.get(method_base, 200)
     batch_size = args.batch_size or cfg.train.batch_size
 
-    dataset = create_dataset(args.dataset, train=True)
+    dataset = create_dataset(args.dataset, train=True, device=device)
     remaining_idx, removed_idx = setup_removal(args, dataset)
     if len(removed_idx) == 0 or len(remaining_idx) == 0:
         raise SystemExit("unlearning needs nonempty remaining and removed sets")

@@ -45,6 +45,15 @@ _D_MIX = 0x27D4EB2F
 # four waves of them.
 _BLOCK_COLS, _BLOCK_ROWS, _TILE_D = 512, 32, 64
 _BLOCKS_PER_SM = 2 * 4
+# The longest chunk of D one block sums. The tensor cores add each product
+# into the f32 accumulators with truncation, not round-to-nearest, so the
+# error of a block's partial grows with the length it sums, not as its square
+# root: at the CelebA U-Net's 274M coordinates, chunks of D / 132 put every
+# output 4x past the kernel's tolerance. Partials of this length (summed in
+# order, in IEEE f32, by the second kernel) keep it near a twentieth of it,
+# for the same kernel time; the (splits, B, P) buffer grows to D / 2^15 rows.
+_MAX_CHUNK_D = 1 << 15
+_MAX_SPLITS = 65_535  # gridDim.y
 
 
 def _fmix32(h: torch.Tensor) -> torch.Tensor:
@@ -114,11 +123,15 @@ def _cdiv(a: int, b: int) -> int:
 
 def _split(b: int, d: int, proj_dim: int, device: torch.device):
     """(chunk, splits) of D: enough blocks for _BLOCKS_PER_SM a multiprocessor
-    over the column and row tiles, each chunk a whole number of d-tiles."""
+    over the column and row tiles, each chunk a whole number of d-tiles and
+    at most _MAX_CHUNK_D long (longer only where the grid's _MAX_SPLITS
+    forces it, D > 2^31)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tiles = _cdiv(proj_dim, _BLOCK_COLS) * _cdiv(b, _BLOCK_ROWS)
     splits = max(1, min(_cdiv(sms * _BLOCKS_PER_SM, tiles), _cdiv(d, _TILE_D)))
     chunk = _cdiv(_cdiv(d, splits), _TILE_D) * _TILE_D
+    longest = max(_MAX_CHUNK_D, _cdiv(_cdiv(d, _MAX_SPLITS), _TILE_D) * _TILE_D)
+    chunk = min(chunk, longest)
     return chunk, _cdiv(d, chunk)
 
 

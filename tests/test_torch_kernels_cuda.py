@@ -37,6 +37,7 @@ from group_attribution_for_diffusion_models_tpu_torch.ops import (
     jl_project,
     jl_project_kernel,
     jl_project_plain,
+    rademacher_rows,
 )
 
 pytestmark = pytest.mark.cuda
@@ -602,6 +603,27 @@ def test_jl_kernel_at_the_lora_gradient_width(cuda):
     limit = 1e-6 * g.abs().sum(dim=1, keepdim=True) / p ** 0.5
     assert ((got - want).abs() <= limit).all()
     assert torch.equal(got, jl_project_kernel(g, p, seed=0))
+
+
+def test_jl_kernel_over_a_long_window_of_d(cuda):
+    """A row whose nonzero coordinates fill a long window: the truncating
+    tensor-core accumulation of a block's chunk grows with its length, so the
+    wrapper caps the chunk. With chunks of D / 132 (909,120 coordinates
+    here) this row read 1.43x its tolerance on an H100, with chunks of 2^15
+    0.07x; the plain version over the window alone is the reference (each
+    output sums its row's coordinates)."""
+    b, d, p, w = 1, 120_000_000, 4096, 1 << 24
+    g = torch.zeros(b, d, device=cuda)
+    g[:, d - w:] = torch.randn(b, w, generator=torch.Generator(device=cuda).manual_seed(9),
+                               device=cuda)
+    got = jl_project_kernel(g, p, seed=3)
+    want = torch.zeros(b, p, device=cuda)
+    for d0 in range(d - w, d, 16_384):
+        d1 = min(d, d0 + 16_384)
+        want += g[:, d0:d1] @ rademacher_rows(3, d0, d1, p, cuda)
+    want *= float(np.float32(1 / np.sqrt(p)))
+    limit = 1e-6 * g.abs().sum(dim=1, keepdim=True) / p ** 0.5
+    assert ((got - want).abs() <= limit).all()
 
 
 @pytest.mark.parametrize("b,sq,h,d", [(3, 1024, 8, 40), (3, 256, 8, 80), (2, 64, 8, 160)])

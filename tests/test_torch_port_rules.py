@@ -68,7 +68,16 @@ SINGLE_MODEL_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("module", SCORING_SLICE + SINGLE_MODEL_SLICE)
+# Per-example attribution and local behaviors on the unconditional workloads:
+# the datasets and their regroup tower, sketch quality, the local CLIs.
+LOCAL_SLICE = [
+    "data/datasets.py", "data/kmeans.py", "models/resnet.py", "cli/grad_features.py",
+    "cli/sketch_quality.py", "cli/calculate_local_scores.py", "cli/calculate_local_loss.py",
+    "cli/group_distribution.py",
+]
+
+
+@pytest.mark.parametrize("module", SCORING_SLICE + SINGLE_MODEL_SLICE + LOCAL_SLICE)
 def test_scoring_slice_modules_import_no_jax(module):
     path = os.path.join(PORT, module)
     assert path in _port_files()

@@ -4,10 +4,15 @@
 FID and IS must be those of the JAX package's functions (`make_feature_fn`,
 `calculate_fid_from_features`, `inception_score_from_logits`) on the same
 samples and the same tower, carried over by the JAX converter, within 1e-4
-relative. `shapley_pipeline --behavior is` runs the estimation loop on the
-Inception Score; `calculate_global_scores` scores a sample directory with
-precision and recall on the tiny VGG tower; `evaluate_fid` compares two PNG
-directories.
+relative. Beside that end-to-end check, the JAX tower's features and
+reference stats must be those the port scored, within 1e-4 relative, and the
+JAX `calculate_fid_from_features` on the features the port scored must give
+the port's FID bit for bit. That FID is the same scipy ``sqrtm`` of the same
+product, so the test computes each distinct ``sqrtm`` input once (a memo by
+the matrix's bytes). `shapley_pipeline --behavior is` runs the estimation
+loop on the Inception Score; `calculate_global_scores` scores a sample
+directory with precision and recall on the tiny VGG tower; `evaluate_fid`
+compares two PNG directories.
 
 Reference stats carry the tag of the tower that made them. The JAX CLIs
 load any ``--ref_stats`` file they find, whatever tower made it
@@ -19,6 +24,7 @@ module takes six: two members in the port and in JAX, one for each of the
 other two CLIs.
 """
 
+import hashlib
 import math
 import os
 import pickle
@@ -27,8 +33,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 from PIL import Image
+from threadpoolctl import threadpool_limits
 
 from group_attribution_for_diffusion_models_tpu.attributions.global_scores import (
     calculate_fid_from_features as jax_calculate_fid_from_features,
@@ -68,10 +76,14 @@ SCORE_RTOL = 1e-4
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """One torch thread while this module runs: the test workers share the CPU."""
+    """One torch thread and one BLAS thread while this module runs: the test
+    workers share the CPU, and scipy's 2048-d sqrtm gains little from more
+    (about 25 s with 8 OpenBLAS threads, 29 s with one, on an idle 8-core
+    CPU) while their spinning slows the other workers."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -81,11 +93,29 @@ def _ensemble_argv(outdir, *extra):
             "--device", "cpu", *extra]
 
 
-def test_train_ensemble_scores_members_as_the_jax_functions_do(tmp_path, capsys):
+def test_train_ensemble_scores_members_as_the_jax_functions_do(tmp_path, capsys, monkeypatch):
     ref_path = tmp_path / "ref.pkl"
     # Stats of another tower, as a JAX run or an earlier weights file leaves
     # them: the port must not score against them.
     save_stats(str(ref_path), np.zeros(2048), np.eye(2048), tower="random:7")
+    scored = []  # (generated features, reference stats) of each port FID
+    port_fid = train_ensemble.calculate_fid_from_features
+
+    def recording_fid(feats, ref_stats):
+        scored.append((np.array(feats), ref_stats))
+        return port_fid(feats, ref_stats=ref_stats)
+
+    roots = {}
+    sqrtm = scipy.linalg.sqrtm
+
+    def sqrtm_once(a, *args, **kwargs):
+        key = (a.shape, hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest())
+        if key not in roots:
+            roots[key] = sqrtm(a, *args, **kwargs)
+        return roots[key]
+
+    monkeypatch.setattr(train_ensemble, "calculate_fid_from_features", recording_fid)
+    monkeypatch.setattr(scipy.linalg, "sqrtm", sqrtm_once)
     # 12 samples a member: IS over 10 splits needs chunks of more than one.
     summary = train_ensemble.main(_ensemble_argv(
         tmp_path, "--n_samples", "12", "--score", "fid_is", "--ref_stats", str(ref_path)))
@@ -99,6 +129,7 @@ def test_train_ensemble_scores_members_as_the_jax_functions_do(tmp_path, capsys)
         assert math.isfinite(fid) and fid > 0 and math.isfinite(is_) and is_ > 1.0
         assert row["scoring_time"] > 0
     assert summary["tower_seconds"] > 0 and summary["fid_seconds"] > 0
+    n_roots = len(roots)
 
     # The JAX CLI's scoring on the same samples, with the port's random tower
     # carried over by the JAX converter.
@@ -106,17 +137,31 @@ def test_train_ensemble_scores_members_as_the_jax_functions_do(tmp_path, capsys)
     variables = jax.tree_util.tree_map(jnp.asarray, convert_torch_state_dict(
         {k: v.numpy() for k, v in port_tower.state_dict().items()}))
     extract = jax_make_feature_fn(JaxInceptionV3(), variables, batch_size=256)
-    ref_feats, _ = extract(create_dataset(DATASET).images[:2048] / 2.0 + 0.5)
-    ref_stats = jax_compute_feature_stats(ref_feats)
+    ref_images = create_dataset(DATASET).images[:2048] / 2.0 + 0.5
     samples = summary["samples"].transpose(0, 1, 3, 4, 2)  # (M, n, H, W, C)
     m, n = samples.shape[:2]
-    feats, logits = extract(samples.reshape((m * n,) + samples.shape[2:]))
+    # One pass over the reference images and the samples: one tower compile.
+    all_feats, all_logits = extract(np.concatenate(
+        [ref_images, samples.reshape((m * n,) + samples.shape[2:])]))
+    ref_stats = jax_compute_feature_stats(all_feats[:len(ref_images)])
+    feats, logits = all_feats[len(ref_images):], all_logits[len(ref_images):]
+    assert len(scored) == m
+    for i, (port_feats, port_stats) in enumerate(scored):
+        want = np.asarray(feats[i * n:(i + 1) * n], np.float64)
+        np.testing.assert_allclose(port_feats, want, rtol=SCORE_RTOL,
+                                   atol=SCORE_RTOL * np.abs(want).max())
+        for got_stat, want_stat in zip(port_stats, ref_stats):
+            np.testing.assert_allclose(got_stat, want_stat, rtol=SCORE_RTOL,
+                                       atol=SCORE_RTOL * np.abs(want_stat).max())
+        assert summary["fid_values"][i] == jax_calculate_fid_from_features(
+            port_feats, ref_stats=port_stats)
+        want_is = jax_inception_score_from_logits(logits[i * n:(i + 1) * n])[0]
+        assert summary["is_values"][i] == pytest.approx(want_is, rel=SCORE_RTOL)
+    assert len(roots) == n_roots == m  # the JAX FIDs took the port's square roots
     for i in range(m):
         want_fid = jax_calculate_fid_from_features(feats[i * n:(i + 1) * n],
                                                    ref_stats=ref_stats)
-        want_is = jax_inception_score_from_logits(logits[i * n:(i + 1) * n])[0]
         assert summary["fid_values"][i] == pytest.approx(want_fid, rel=SCORE_RTOL)
-        assert summary["is_values"][i] == pytest.approx(want_is, rel=SCORE_RTOL)
 
 
 def test_train_ensemble_reruns_members_whose_rows_lack_the_score(tmp_path):

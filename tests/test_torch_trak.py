@@ -84,6 +84,15 @@ B = 3
 NO_ATTENTION = dataclasses.replace(config_for("synthetic_64x8").unet, add_attention=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread while this module runs: the test workers share the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """The JAX ATTN_TINY params, the port's model carrying them, numpy
@@ -459,12 +468,13 @@ def test_generated_features_draw_noise_apart_from_sampling(tmp_path, monkeypatch
 
     def make_grad_feature_fn(*a, **kw):
         fn = real_make(*a, **kw)
+        inner = fn.mean_gradients
 
-        def features(images, generator):
+        def mean_gradients(images, generator):
             first_draw("features", generator, images.shape)
-            return fn(images, generator=generator)
-        features.dim = fn.dim
-        return features
+            return inner(images, generator=generator)
+        fn.mean_gradients = mean_gradients
+        return fn
 
     monkeypatch.setattr(grad_features, "sample_loop", sample_loop)
     monkeypatch.setattr(grad_features, "make_grad_feature_fn", make_grad_feature_fn)
