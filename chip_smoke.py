@@ -34,11 +34,18 @@ Phases (one line each; any failure raises and exits non-zero):
    CPU from the same weights, images, timesteps and noise (batch 8, float32,
    TF32 off): loss, gradient norm and gradients; and two card runs of the
    step agree bit for bit.
-   members: two full-width CIFAR members stacked with `stack_module_state`
-   through `torch.func.vmap(functional_call)`, batch 4 each: the forward and
-   per-member gradients (`vmap(grad)`, each member with a seeded gamma/beta
-   of its own in every GroupNorm) against the member loop on the card, one
-   launch a GroupNorm site for both members.
+   ensemble: the stacked ensemble at full width. 8 CIFAR members at batch
+   64, each with a seeded gamma/beta of its own in every GroupNorm: one
+   stacked step (`training.train.make_members_step`: one vmapped forward and
+   backward, one launch a kernel site for every member) against the same 8
+   member-steps one at a time from the same states and draws (losses,
+   clipped gradients, weights), seconds a step, peaks and the convolutions'
+   device time of both; ``run_scanned(6, chunk=3)`` against ``run(6)`` bit
+   for bit under common noise, where two members on one subset end
+   bit-identical. 2 miniSD LoRA members at batch 64 in one
+   `train_text_to_image_lora.members_step` against each member alone, the
+   same checks. ``cli.main --scan_chunk`` on the CIFAR stand-in beside its
+   per-step loop.
 5. main path, sampling: a seeded random-init full-width CIFAR checkpoint
    sampled through ``cli.generate_samples.main`` (2 batches of 64 images x
    100 DDIM steps; the second batch's time is the warm one).
@@ -47,8 +54,9 @@ Phases (one line each; any failure raises and exits non-zero):
 7. main path, training: ``cli.train_ensemble.main`` on a seeded stand-in for
    the CIFAR-10 training set (50,000 uint8 images in the
    ``cifar-10-batches-py`` layout), full-width CIFAR, 8 shapley members at
-   batch 64 with eval loss and 16 DDIM samples each: 2 steps to warm up,
-   then 20 steps timed.
+   batch 64, stacked (one launch a kernel site a step for all of them), with
+   eval loss and 16 DDIM samples each: 2 steps to warm up, then 6 steps
+   timed.
 8. trak-step: the full-width CIFAR per-sample gradients (batch 2, one
    timestep, injected noise) through the vmap rules on the card against the
    CPU, and against a per-example autograd loop on the card.
@@ -58,11 +66,12 @@ Phases (one line each; any failure raises and exits non-zero):
    attention-only modes; Journey TRAK), then ``cli.traks.main`` on the
    store.
 10. main path, the estimation loop: ``cli.shapley_pipeline.main`` on the
-    stand-in at full width (by class, 8 shapley fit and 6 datamodel test
-    subsets, 20 steps at batch 64, eval-loss behavior, two anchors: arm A,
-    retrain), ``cli.prune.main`` (Taylor importance, 10 timesteps, ratio
-    0.5) on arm A's full anchor, then the pipeline again on the same DB with
-    ``--method prune_fine_tune --load <pruned> --fit_training_steps 10``
+    stand-in at full width (by class, 6 shapley fit and 6 datamodel test
+    subsets, 3 steps, at the default ``--chunk_size`` and batch, with the
+    peak, eval-loss behavior, two anchors: arm A, retrain), ``cli.prune.main``
+    (Taylor importance, 10 timesteps, ratio 0.5) on arm A's full anchor, then
+    the pipeline again on the same DB with
+    ``--method prune_fine_tune --load <pruned> --fit_training_steps 2``
     (arm B, sparse fine-tuning, its test rows reused). Launch counts per
     arm, attributions of shape (10,), the efficiency constraint, the fit
     game's anchors and a shared y_test are asserted.
@@ -73,7 +82,7 @@ Phases (one line each; any failure raises and exits non-zero):
     the main path of the sample behaviors: ``cli.shapley_pipeline.main
     --behavior fid_value`` at full width on the stand-in (by class, 2
     shapley fit and 2 datamodel test subsets, the fewest its fit stage takes,
-    20 steps at batch 64, the two anchors, 256 DDIM samples of 20 steps a
+    10 steps at batch 64, the two anchors, 256 DDIM samples of 10 steps a
     member scored in the loop: 6 FIDs, each a 2048-d host sqrtm), its
     seconds split into training, sampling, tower and FID math, launches,
     every member's FID and the efficiency constraint asserted; then
@@ -94,7 +103,7 @@ Phases (one line each; any failure raises and exits non-zero):
     ``cli.shapley_pipeline.main --dataset celeba --vqvae_weights`` (by
     celebrity, 3 fit and 2 test subsets, 3 steps at batch 32, the two
     anchors; one encode of the stand-in, then its cache), ``cli.
-    generate_samples.main`` (16 images x 50 DDIM steps decoded to 256x256
+    generate_samples.main`` (16 images x 25 DDIM steps decoded to 256x256
     PNGs, all distinct), a card-vs-CPU reference at batch 1 (3 DDIM steps and
     the decode, encode -> quantize of a stand-in image, codes agreeing at
     99% or more), and ``cli.calculate_global_scores_diversity.main`` (32
@@ -114,12 +123,12 @@ Phases (one line each; any failure raises and exits non-zero):
     (batch 64), of a KL encode (batch 64) and decode (batch 8) against their
     plain versions, repeated bit for bit, timed beside their bounds, library
     and plain times; the plain route at the KL mid attention timed. Then
-    ``cli.train_text_to_image_lora.main`` (2 datamodel members x 3 steps at
-    batch 64, the base frozen: no GroupNorm gamma/beta reduction; the
+    ``cli.train_text_to_image_lora.main`` (2 datamodel members stacked x 3
+    steps at batch 64, the base frozen: no GroupNorm gamma/beta reduction; the
     latents encoded once and cached with a tag), ``cli.prune_lora.main``
     (ratio 0.5), a 3-step ``--method pruned_ft`` of the pruned LoRA on 2
     shapley subsets (the latents' cache reused),
-    ``cli.generate_samples_tti.main`` (16 images x 50 DDIM steps, and a
+    ``cli.generate_samples_tti.main`` (16 images x 25 DDIM steps, and a
     second call that resumes with nothing to do), each with its launches and
     plain-route calls reckoned from the specs; and a card-vs-CPU reference
     at batch 1 of 3 DDIM steps of the LoRA'd base with a CLIP context, the
@@ -130,10 +139,11 @@ Phases (one line each; any failure raises and exits non-zero):
     sample, against the plain versions and timed. The CLIP ViT-L/14 vision tower
     and the aesthetic head card vs CPU at batch 2, the tower timed at batch
     32 beside its FLOP bound. Then the scoring loop: 4 shapley members and
-    the full anchor trained (3 steps at batch 64), a null anchor (the LoRA's
+    the full anchor trained (3 steps at batch 64; the 4 members stacked in
+    slices of 32, ``--microbatch``, to fit the card), a null anchor (the LoRA's
     up factors zeroed); every member's mask as the LDS CLIs redraw it
     against the trainer's kept_units; ``cli.compute_model_behaviors.main``
-    timed once (16 paired samples x 50 DDIM steps, the KL decode, the CLIP
+    timed once (16 paired samples x 25 DDIM steps, the KL decode, the CLIP
     tower, 3 loss draws), then on each of the 8 members and both anchors (2
     samples x 5 steps), and once more, skipped by the duplicate guard;
     ``cli.shapley_lds.main`` with the measured anchors (the efficiency
@@ -174,7 +184,7 @@ Phases (one line each; any failure raises and exits non-zero):
     gamma/beta gradient per sample) under vmap(grad) at batch 8 against the
     plain versions, one launch each, timed beside plain and library times.
     Then ``cli.grad_features.main`` in VQ latents on [ldm]'s full anchor and
-    tagged latents cache at batch 8: the train source (2 batches x 10
+    tagged latents cache at batch 8: the train source (2 batches x 5
     timesteps -> 4096), generated (8 samples x 20 DDIM steps, raw latents),
     probe and attn_full (a batch each), generated_journey (5 steps), and
     ``cli.traks.main`` on the store; ``cli.sketch_quality.main`` on CIFAR
@@ -239,7 +249,9 @@ SAMPLE_ATOL = 2e-3  # images in [0, 1] after 5 DDIM steps of that forward
 # or a wrong backward kernel is off by O(1).
 TRAIN_STEP_RTOL = 1e-3
 TRAIN_STEP_BATCH = 8
-TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_WARM_STEPS, TRAIN_BATCH = 8, 20, 2, 64
+# 6 steps: the stacked f32 step takes 1.7x the member loop's, and [ensemble]
+# needs the time.
+TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_WARM_STEPS, TRAIN_BATCH = 8, 6, 2, 64
 # train_ensemble caps the batch at the smallest subset (as the JAX CLI does).
 # Shapley seeds 22..29 keep 65 to 49,999 of the 50,000 images, so the
 # members train at batch 64; seed 7, for one, keeps 3.
@@ -299,8 +311,10 @@ GN_CENSUS = [
 ]
 GN_CENSUS_BATCH = 64
 PRUNE_RATIOS = (0.3, 0.5)  # magnitude pruning of the seeded CIFAR U-Net in [prune-gn]
-# [pipeline]: shapley_pipeline at full width on the stand-in, by class.
-PIPE_FIT, PIPE_TEST, PIPE_STEPS, PIPE_FT_STEPS, PIPE_BATCH = 8, 6, 20, 10, 64
+# [pipeline]: shapley_pipeline at full width on the stand-in, by class, at its
+# default --chunk_size and CIFAR's default batch (128). 6 fit subsets, 3 and 2
+# steps, for [ensemble]'s time.
+PIPE_FIT, PIPE_TEST, PIPE_STEPS, PIPE_FT_STEPS = 6, 6, 3, 2
 PIPE_TEST_SEED = 42  # datamodel seeds 42..47 keep 5 of the stand-in's 10 classes each
 PIPE_TAYLOR_STRIDE, PIPE_PRUNE_RATIO = 100, 0.5  # 10 Taylor timesteps: 999, 899, ..., 99
 # Efficiency constraint of the closed form: |sum(attrs) - (v1 - v0)| <= this * max(1, |v1 - v0|).
@@ -315,17 +329,24 @@ TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 8, 256
 # re-scores the full anchor's samples, the same sqrtm input when the port is right:
 # each distinct input is rooted once (a memo by the matrix's bytes), so the check
 # adds no seventh root unless its features or stats differ.
-SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 20, 64
-SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 20, 42
+SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 10, 64
+SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 10, 42
 # calculate_global_scores --seed SCORE_SEED on the anchor's checkpoint draws the
 # anchor's own samples (train_ensemble's default --opt_seed, which the pipeline
 # keeps; the same batch and EMA weights), so its FID is the anchor row's up to
 # the host's float64 BLAS.
 SCORE_FID_RTOL = 1e-6
-# Stacked members under vmap against the member loop on the card: the same f32
-# ops on other batch shapes (functorch runs a vmapped convolution as a grouped
-# one), max |d| / max |ref| over outputs and over all gradients.
-MEMBERS, MEMBERS_BATCH, MEMBERS_RTOL = 2, 4, 1e-4
+# [ensemble]: the stacked step against the member loop on the card, f32, TF32
+# off: the same f32 ops on other batch shapes (functorch runs a vmapped
+# convolution as a grouped one) through a forward and a backward. Losses and
+# gradient norms within ENS_RTOL relative, the clipped gradients max |d| <=
+# ENS_RTOL max |g| over all tensors; per tensor the change of the weights
+# within ENS_MOVE_RTOL of its L2 norm (the CPU tests' rule: Adam turns float
+# noise of a gradient element near zero into a visible share of lr).
+ENS_MEMBERS, ENS_BATCH, ENS_TIMED, ENS_RTOL, ENS_MOVE_RTOL = 8, 64, 2, 1e-4, 1e-2
+ENS_SCAN_STEPS, ENS_SCAN_CHUNK = 6, 3  # run_scanned(6, chunk=3) against run(6)
+ENS_TTI_MEMBERS = 2  # miniSD LoRA members stacked, at TTI_BATCH
+ENS_MAIN_STEPS, ENS_MAIN_CHUNK = 10, 5  # cli.main --scan_chunk on CIFAR
 STEPS, BATCH, N_BATCHES = 100, 64, 2
 # [ldm]: the latent-diffusion workload at full CelebA width (get_config("celeba"):
 # a 274,056,163-parameter U-Net on 64x64x3 latents of the full VQVAESpec) on a
@@ -338,7 +359,7 @@ LDM_VQ_STEPS, LDM_VQ_BATCH = 3, 8  # train_vqvae at the full VQVAESpec
 # of the 8 groups (48 or more images) and datamodel seeds 42, 43 keep 4, so every
 # member trains at batch 32.
 LDM_FIT, LDM_TEST, LDM_STEPS, LDM_BATCH = 3, 2, 3, 32
-LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 50  # generate_samples, one batch
+LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 25  # generate_samples, one batch
 LDM_DIV_SAMPLES, LDM_DIV_STEPS, LDM_CLUSTERS = 32, 20, 8  # and 4 x 32 reference images
 LDM_ATTN_SHAPES = [  # the CelebA U-Net's attention at training batch 32, head dim 32
     (32, 1024, 1024, 14, 32),  # 32x32 latents
@@ -362,7 +383,7 @@ LDM_CODE_AGREEMENT, LDM_REF_STEPS = 0.99, 3
 TTI_ARTISTS, TTI_PER_ARTIST = 16, 16
 TTI_MEMBERS, TTI_STEPS, TTI_BATCH, TTI_RANK = 2, 3, 64, 256
 TTI_ENCODE_BATCH = 64  # precompute_latents' batch
-TTI_SAMPLES, TTI_SAMPLE_STEPS = 16, 50  # generate_samples_tti, one batch
+TTI_SAMPLES, TTI_SAMPLE_STEPS = 16, 25  # generate_samples_tti, one batch
 TTI_PRUNE_RATIO = 0.5
 TTI_ATTN_SHAPES = [  # miniSD's attention at training batch 64, 8 heads: self, then cross
     (64, 1024, 1024, 8, 40), (64, 1024, 77, 8, 40),    # 32x32 latents, width 320
@@ -383,9 +404,12 @@ TTI_REF_STEPS = 3
 # seeds 0..3 keep 9, 6, 6 and 9 of the 16 artists (96 images or more), so those
 # members train at batch 64 too; the sparse fine-tunes take shapley seeds 0 and 1.
 TTI_SHAPLEY, TTI_FT_MEMBERS = 4, 2
+# The 4 stacked shapley members' --microbatch: each slice's forward holds what
+# 2 members at batch 64 hold.
+TTI_SHAPLEY_MICROBATCH = 32
 # compute_model_behaviors: one timed call (reference LoRA against a subset LoRA),
 # then a smaller call for every member and each anchor.
-TTI_SCORE_SAMPLES, TTI_SCORE_STEPS, TTI_SCORE_NOISES = 16, 50, 3
+TTI_SCORE_SAMPLES, TTI_SCORE_STEPS, TTI_SCORE_NOISES = 16, 25, 3
 TTI_MEMBER_SAMPLES, TTI_MEMBER_STEPS, TTI_MEMBER_NOISES = 2, 5, 1
 # grad_features_tti: the train source timed on the first TTI_TRAK_EXAMPLES images
 # (2 artists: the stand-in is in name order), then on every image at one timestep,
@@ -425,7 +449,7 @@ UNL_LDM_STEPS, UNL_LDM_BATCH = 3, 32
 # window of the last LOC_JL_WINDOW coordinates of every row (the rest zero: each
 # output row is a sum over its row's coordinates), where the last row's offsets
 # b*D + d all pass 2^31.
-LOC_BATCH, LOC_TRAIN, LOC_TIMESTEPS, LOC_PROJ = 8, 16, 10, 4096
+LOC_BATCH, LOC_TRAIN, LOC_TIMESTEPS, LOC_PROJ = 8, 16, 5, 4096
 LOC_GEN_STEPS, LOC_JOURNEY_STEPS = 20, 5
 LOC_JL = (8, 274_056_163, 4096)
 LOC_JL_WINDOW = 1 << 24
@@ -1112,27 +1136,39 @@ def check_pipeline(torch, np, ops, root: str, card: str):
     base, on the same DB and test seeds), each between a counter reset and a
     read, with the launches the code implies. Returns the summed counts."""
     from group_attribution_for_diffusion_models_tpu_torch.cli import prune, shapley_pipeline
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
 
     outdir = os.path.join(root, "pipeline")
+    # No --chunk_size and no --batch_size: the pipeline's defaults.
     common = ["--dataset", "cifar", "--by_class", "--fit_dist", "shapley",
               "--removal_seed", "0", "--num_fit_subsets", str(PIPE_FIT),
               "--num_test_subsets", str(PIPE_TEST), "--test_seed_start", str(PIPE_TEST_SEED),
-              "--training_steps", str(PIPE_STEPS), "--batch_size", str(PIPE_BATCH),
-              "--behavior", "eval_loss", "--chunk_size", str(PIPE_FIT), "--no-save_ckpts",
-              "--device", "cuda", "--outdir", outdir]
-    # Per member: its steps' forwards and backwards and one eval-loss forward.
-    # Arm A: fit and test members, the null anchor (0 steps), the full anchor.
-    a_steps = (PIPE_FIT + PIPE_TEST + 1) * PIPE_STEPS
-    want_a = unet_counts(a_steps + PIPE_FIT + PIPE_TEST + 2, a_steps)
-    # Arm B: fit members and anchors only; its test rows are arm A's.
+              "--training_steps", str(PIPE_STEPS), "--behavior", "eval_loss",
+              "--no-save_ckpts", "--device", "cuda", "--outdir", outdir]
+    chunk = shapley_pipeline.parse_args(common).chunk_size
+    batch = get_config("cifar").train.batch_size
+
+    def calls(n):
+        return -(-n // chunk)
+
+    # A train_ensemble call stacks its members (`chunk` at most): one forward
+    # and backward a step for all of them; then one eval-loss forward a
+    # member. Arm A: the fit calls, the test calls, the full anchor (and the
+    # null anchor, 0 steps).
+    a_steps = (PIPE_FIT + PIPE_TEST + 1) * PIPE_STEPS  # member-steps
+    a_launch = (calls(PIPE_FIT) + calls(PIPE_TEST) + 1) * PIPE_STEPS
+    want_a = unet_counts(a_launch + PIPE_FIT + PIPE_TEST + 2, a_launch)
+    # Arm B: the fit calls and the anchors; its test rows are arm A's.
     b_steps = (PIPE_FIT + 1) * PIPE_FT_STEPS
-    want_b = unet_counts(b_steps + PIPE_FIT + 2, b_steps)
+    b_launch = (calls(PIPE_FIT) + 1) * PIPE_FT_STEPS
+    want_b = unet_counts(b_launch + PIPE_FIT + 2, b_launch)
     # Taylor: one forward and backward a timestep, then the pruned model's check.
     taylor = len(range(999, -1, -PIPE_TAYLOR_STRIDE))
     want_p = unet_counts(taylor + 1, taylor)
 
     def timed(fn, argv):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts(ops)
         t0 = time.perf_counter()
         out = fn(argv)
@@ -1141,6 +1177,8 @@ def check_pipeline(torch, np, ops, root: str, card: str):
 
     arms = {}
     a, a_wall, a_counts = timed(shapley_pipeline.main, common)
+    log(f"[pipeline] arm A at the defaults, {chunk} members a call at batch {batch}: peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     arms["A retrain"] = (a, a_wall, a_counts, want_a, a_steps)
     full = os.path.join(outdir, "cifar", "retrain", "models", "full")
     p, p_wall, p_counts = timed(prune.main, [
@@ -1149,7 +1187,7 @@ def check_pipeline(torch, np, ops, root: str, card: str):
         "--outdir", outdir, "--device", "cuda"])
     widths = sorted(set(p["spec"].pruned_channels.values()))
     log(f"[pipeline] prune taylor ratio {PIPE_PRUNE_RATIO} of arm A's full anchor ({taylor} "
-        f"timesteps at batch {PIPE_BATCH}): {p['params_before']} -> {p['params_after']} params, "
+        f"timesteps): {p['params_before']} -> {p['params_after']} params, "
         f"hidden widths {widths}, scoring and slicing {p['seconds']:.3f} s, call "
         f"{p_wall:.3f} s, launches {p_counts} (expected {want_p})")
     if p_counts != want_p:
@@ -1164,7 +1202,7 @@ def check_pipeline(torch, np, ops, root: str, card: str):
         limit = EFFICIENCY_RTOL * max(1.0, abs(r["v1"] - r["v0"]))
         log(f"[pipeline] arm {label} cifar by class f32 on {card}: {row['num_fit_subsets']} fit "
             f"x {row['fit_training_steps']} steps, {row['num_test_subsets']} test rows; training "
-            f"{r['train_seconds']:.3f} s ({steps} member-steps at batch {PIPE_BATCH}, "
+            f"{r['train_seconds']:.3f} s ({steps} member-steps at batch {batch}, "
             f"{steps / r['train_seconds']:.3f} member-steps/s), subset_passes_per_hour "
             f"{row['subset_passes_per_hour']}, call {wall:.3f} s; lds_pooled "
             f"{row['lds_pooled']:.4f}, v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual "
@@ -1293,8 +1331,10 @@ def _check_scores(torch, np, ops, outdir: str, ref_stats: str, card: str, roots:
 
     members = SCORE_FIT + SCORE_TEST + 2  # and the null and full anchors
     steps = (SCORE_FIT + SCORE_TEST + 1) * SCORE_STEPS
-    # Per member: its steps' forwards and backwards, one forward a DDIM step.
-    want = unet_counts(steps + members * SCORE_SAMPLE_STEPS, steps)
+    # The fit call, the test call and the full anchor each stack their members
+    # (a forward and backward a step); one forward a DDIM step a member.
+    launch = 3 * SCORE_STEPS
+    want = unet_counts(launch + members * SCORE_SAMPLE_STEPS, launch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
@@ -1545,13 +1585,17 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
     # shapley_pipeline: the first call encodes the stand-in (LDM_IMAGES / 32
     # batches), every other call reads the cache.
     members = LDM_FIT + LDM_TEST + 2
-    steps = (LDM_FIT + LDM_TEST + 1) * LDM_STEPS
+    steps = (LDM_FIT + LDM_TEST + 1) * LDM_STEPS  # member-steps
+    # Each train_ensemble call stacks its members (the default --chunk_size at
+    # most): one forward and backward a step for all of them.
+    chunk = train_ensemble.MEMBERS_PER_CALL
+    calls = -(-LDM_FIT // chunk) + -(-LDM_TEST // chunk) + 1
     r, p_wall, counts, routes, peak = timed(shapley_pipeline.main, [
         "--dataset", "celeba", "--by_class", "--fit_dist", "shapley", "--removal_seed", "0",
         "--num_fit_subsets", str(LDM_FIT), "--num_test_subsets", str(LDM_TEST),
         "--test_seed_start", str(PIPE_TEST_SEED), "--training_steps", str(LDM_STEPS),
-        "--batch_size", str(LDM_BATCH), "--behavior", "eval_loss", "--chunk_size",
-        str(LDM_FIT), "--vqvae_weights", weights, "--device", "cuda", "--outdir", outdir])
+        "--batch_size", str(LDM_BATCH), "--behavior", "eval_loss",
+        "--vqvae_weights", weights, "--device", "cuda", "--outdir", outdir])
     enc_counts, enc_routes = encodes(LDM_IMAGES // 32)
     sec, row = r["seconds"], r["row"]
     resid = abs(r["attrs"].sum() - (r["v1"] - r["v0"]))
@@ -1567,7 +1611,8 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
         f"{peak:.2f} GiB; v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual "
         f"{resid:.3g} (limit {limit:.3g})")
     expect("shapley_pipeline", counts, routes,
-           add_counts(model_counts(n_attn, n_gn, steps + members, steps), enc_counts),
+           add_counts(model_counts(n_attn, n_gn, calls * LDM_STEPS + members,
+                                   calls * LDM_STEPS), enc_counts),
            enc_routes)
     if not (r["attrs"].shape == (len(LDM_IDS),) and np.isfinite(r["attrs"]).all()
             and resid <= limit and np.isfinite(r["y_fit"]).all()):
@@ -1823,7 +1868,7 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
     sums = ops.group_norm_silu.affine_sums
     r, wall, counts, routes, peak = timed(train_text_to_image_lora.main,
                                           common + ["--num_seeds", str(TTI_MEMBERS)])
-    steps = TTI_MEMBERS * TTI_STEPS
+    steps = TTI_MEMBERS * TTI_STEPS  # member-steps, stacked: TTI_STEPS launches a site
     sec, step_s = r["seconds"], r["step_seconds"]
     warm = sum(step_s[1:]) / (len(step_s) - 1) / TTI_MEMBERS
     cache = os.path.join(outdir, "precomputed_emb", "vae_latents.npy")
@@ -1839,7 +1884,7 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
         f"{[round(x, 4) for x in step_s]}, warm {warm:.4f} s a member-step = "
         f"{1 / warm:.4f} member-steps/s); call {wall:.3f} s, peak {peak:.2f} GiB; losses "
         f"{r['losses']}; GroupNorm affine reductions {ops.group_norm_silu.affine_sums - sums}")
-    want = add_counts(tti_counts(n_attn, n_gn, n_gn_bwd, steps, steps),
+    want = add_counts(tti_counts(n_attn, n_gn, n_gn_bwd, TTI_STEPS, TTI_STEPS),
                       tti_counts(0, n_enc, 0, encodes))
     expect("train_text_to_image_lora", counts, routes, want,
            {"attention_plain_fwd": encodes, "attention_plain_bwd": 0}, phase="tti")
@@ -1888,9 +1933,8 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
         f"{f_out['latents_cached']}, training {f_out['train_seconds']:.3f} s (step seconds "
         f"{[round(x, 4) for x in f_step]}, {f_step[-1] / TTI_FT_MEMBERS:.4f} s a member-step), "
         f"call {f_wall:.3f} s, peak {peak:.2f} GiB, losses {f_out['losses']}")
-    ft_steps = TTI_FT_MEMBERS * TTI_STEPS
     expect("pruned_ft", counts, routes,
-           tti_counts(n_attn, n_gn, n_gn_bwd, ft_steps, ft_steps), no_route, phase="tti")
+           tti_counts(n_attn, n_gn, n_gn_bwd, TTI_STEPS, TTI_STEPS), no_route, phase="tti")
     if not (f_out["latents_cached"] and f_out["batch"] == TTI_BATCH
             and all(lora_ranks(load_lora_npz(path)) == p["ranks"] for path in f_out["lora_paths"])
             and all(math.isfinite(x) for x in f_out["losses"])
@@ -2178,15 +2222,19 @@ def check_tti_scoring(torch, np, ops, outdir: str, card: str, common: list, time
 
     n_attn, n_gn, n_gn_bwd, n_dec = (shape[k] for k in ("n_attn", "n_gn", "n_gn_bwd", "n_dec"))
     no_route = {"attention_plain_fwd": 0, "attention_plain_bwd": 0}
-    steps = TTI_SHAPLEY * TTI_STEPS
+    # The members stacked in one program; --microbatch halves what each
+    # forward holds, so that they fit the card (two launches a site a step).
+    slices = TTI_BATCH // TTI_SHAPLEY_MICROBATCH
     s_out, wall, total, routes, peak = timed(train_text_to_image_lora.main, common + [
-        "--removal_dist", "shapley", "--num_seeds", str(TTI_SHAPLEY)])
-    log(f"[tti] train_text_to_image_lora {TTI_SHAPLEY} shapley members x {TTI_STEPS} steps, "
-        f"subsets {s_out['subset_sizes']} images, batch {s_out['batch']}: training "
-        f"{s_out['train_seconds']:.3f} s, call {wall:.3f} s, peak {peak:.2f} GiB, latents "
-        f"from the cache={s_out['latents_cached']}")
+        "--removal_dist", "shapley", "--num_seeds", str(TTI_SHAPLEY), "--microbatch",
+        str(TTI_SHAPLEY_MICROBATCH)])
+    log(f"[tti] train_text_to_image_lora {TTI_SHAPLEY} shapley members stacked x {TTI_STEPS} "
+        f"steps, subsets {s_out['subset_sizes']} images, batch {s_out['batch']} in slices of "
+        f"{TTI_SHAPLEY_MICROBATCH}: training {s_out['train_seconds']:.3f} s, call {wall:.3f} s, "
+        f"peak {peak:.2f} GiB, latents from the cache={s_out['latents_cached']}")
     expect("shapley members", total, routes,
-           tti_counts(n_attn, n_gn, n_gn_bwd, steps, steps), no_route, phase="tti")
+           tti_counts(n_attn, n_gn, n_gn_bwd, slices * TTI_STEPS, slices * TTI_STEPS), no_route,
+           phase="tti")
     f_out, wall, counts, routes, _ = timed(train_text_to_image_lora.main, common + [
         "--removal_dist", "full"])
     log(f"[tti] train_text_to_image_lora --removal_dist full (the full anchor and the "
@@ -2628,64 +2676,320 @@ def check_train_step(torch, np, spec, dev):
         raise AssertionError("the train step on the card disagrees with the CPU")
 
 
-def check_members(torch, np, ops, spec, dev):
-    """MEMBERS full-width CIFAR members stacked with `stack_module_state`,
-    through `torch.func.vmap(functional_call)` (each member with a seeded
-    gamma/beta of its own in every GroupNorm): the forward and per-member
-    gradients (`vmap(grad)`) in one vmapped call, each GroupNorm site one
-    launch for every member, against the member loop on the card."""
-    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
-    from group_attribution_for_diffusion_models_tpu_torch.models.layers import GroupNormSiLU
+def device_split(torch, fn) -> dict:
+    """Device ms of one call of `fn` by kernel group (the groups of
+    scripts/profile_torch_sampling.py), from the trace's intervals, with the
+    time the device was busy (their union) under "busy"; a trace with no
+    device activity is taken again, up to three times, then {} is returned."""
+    from torch.profiler import ProfilerActivity, profile
 
-    models = [build_unet(spec, seed=10 + m).to(dev) for m in range(MEMBERS)]
-    # Every GroupNorm starts at gamma = 1, beta = 0 in every member; give each
-    # member its own, so that a kernel reading another member's row of
-    # gamma/beta disagrees with the loop.
-    g = torch.Generator(device=dev).manual_seed(11)
-    with torch.no_grad():
-        for model in models:
-            for norm in (m for m in model.modules() if isinstance(m, GroupNormSiLU)):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from profile_torch_sampling import device_activity, group
+
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        activity = device_activity(prof)
+        if activity["by_kernel"]:
+            break
+    else:
+        return {}
+    out: dict = {"busy": activity["busy_ms"]}
+    for name, (ms, _) in activity["by_kernel"].items():
+        out[group(name)] = out.get(group(name), 0.0) + ms
+    return out
+
+
+def split_line(split: dict) -> str:
+    conv = split.get("convolution (cuDNN)", 0.0)
+    summed = sum(ms for g, ms in split.items() if g != "busy")
+    return (f"device busy {split['busy']:.3f} ms (kernels summed {summed:.3f}), "
+            f"convolutions {conv:.3f} ms" if split else "no device trace")
+
+
+def timed_steps(torch, fn, steps: int) -> float:
+    """Seconds a call of `fn`, over `steps` calls to a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def moved_within(start: dict, got: dict, want: dict) -> tuple:
+    """(the largest ||got - want|| / ||want - start||, its tensor's name)
+    over tensors whose move is not zero: the tests' rule (Adam turns float
+    noise of a gradient element near zero into a visible share of lr, so
+    single elements are not compared; a tensor's move is). A key
+    projection's bias is left out, as the tests leave it out: its gradient
+    is zero in exact arithmetic (it shifts all of a query's scores alike),
+    so Adam's first step normalises float noise."""
+    worst = (0.0, None)
+    for n, w in want.items():
+        moved = (w - start[n]).double().norm().item()
+        if moved > 0 and not str(n).endswith("to_k.bias"):
+            worst = max(worst, ((got[n] - w).double().norm().item() / moved, n),
+                        key=lambda x: x[0])
+    return worst
+
+
+def check_ensemble(torch, np, ops, dev, card: str, root: str) -> dict:
+    """The stacked ensemble at full width. CIFAR: ENS_MEMBERS members at batch
+    ENS_BATCH, each with a seeded gamma/beta of its own in every GroupNorm:
+    one stacked step (`make_members_step`) against the same member-steps one
+    at a time (`make_train_step`) from the same states and draws, losses,
+    clipped gradients and weights; the launches (one a kernel site for every
+    member); seconds a step, peaks and the convolutions' device time of
+    both. Then run_scanned(ENS_SCAN_STEPS, chunk=ENS_SCAN_CHUNK) against run()
+    bit for bit under common noise, where two members on one subset must end
+    bit-identical. miniSD: ENS_TTI_MEMBERS LoRA members at batch TTI_BATCH in
+    one `members_step` against each member alone, the same checks. Then
+    cli.main on the CIFAR stand-in with --scan_chunk and with the per-step
+    loop. Returns the launches of the two cli.main calls."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli import main as main_cli
+    from group_attribution_for_diffusion_models_tpu_torch.cli.train_text_to_image_lora import (
+        lora_leaves, members_step as lora_members_step)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import (
+        MINISD_SCHEDULER, MINISD_UNET, get_config)
+    from group_attribution_for_diffusion_models_tpu_torch.data import sample_removal
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_schedule
+    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        CrossAttention, GroupNormSiLU)
+    from group_attribution_for_diffusion_models_tpu_torch.models.lora import (
+        lora_init, stack_lora_trees)
+    from group_attribution_for_diffusion_models_tpu_torch.parallel import EnsembleTrainer
+    from group_attribution_for_diffusion_models_tpu_torch.training import (
+        make_members_step, make_optimizer, make_train_step, unstack_state)
+    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import get_max_steps
+
+    cfg = get_config("cifar")
+    spec, m_count = cfg.unet, ENS_MEMBERS
+    images = np.random.default_rng(3).integers(0, 256, (CIFAR_TRAIN_IMAGES, 32, 32, 3),
+                                               dtype=np.uint8)
+    subsets = [sample_removal("shapley", CIFAR_TRAIN_IMAGES, seed=TRAIN_SEED_START + m)[0]
+               for m in range(m_count)]
+
+    def own_gamma_beta(seed):
+        """The seeded U-Net on the card with a gamma/beta of its own in every
+        GroupNorm (each starts at 1, 0 in every member)."""
+        model = build_unet(spec, seed, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            for norm in (x for x in model.modules() if isinstance(x, GroupNormSiLU)):
                 norm.weight.copy_(1 + 0.1 * torch.randn(norm.weight.shape, generator=g,
                                                         device=dev))
                 norm.bias.copy_(0.1 * torch.randn(norm.bias.shape, generator=g, device=dev))
-    params, buffers = torch.func.stack_module_state(models)
-    rng = np.random.default_rng(9)
-    shape = (MEMBERS, MEMBERS_BATCH, 3, 32, 32)
-    x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
-    target = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
-    t = torch.tensor([999, 500, 20, 0], device=dev)
+        return model
 
-    def loss(p, bufs, xx, tgt):
-        out = torch.func.functional_call(models[0], (p, bufs), (xx, t))
-        return torch.mean((out - tgt) ** 2), out
+    def trainer_of(member_indices, common_noise):
+        return EnsembleTrainer(
+            tx=make_optimizer("adam", lr=cfg.train.optimizer.lr),
+            schedule=make_schedule(cfg.scheduler, dev), spec=cfg.scheduler, images_u8=images,
+            member_indices=member_indices, batch_size=ENS_BATCH, device=dev,
+            common_noise=common_noise)
 
-    reset_counts(ops)
-    grads, outs = torch.func.vmap(torch.func.grad(loss, has_aux=True))(
-        params, buffers, x, target)
+    def peak_call(fn):
+        """(fn(), launches, peak GiB, GiB above what was allocated before)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ops)
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return out, ops.launch_counts(), peak / 2**30, (peak - before) / 2**30
+
+    # --- CIFAR: one stacked step against the member loop ---------------------
+    trainer = trainer_of(subsets, common_noise=False)
+    stacked = trainer.init_state(own_gamma_beta, seed=0)
+    looped = [unstack_state(stacked, m) for m in range(m_count)]
+    start = {n: p.detach().clone() for n, p in stacked.params.items()}
+    raw, t, noise = trainer.draws(0)
+    batch = trainer.batch(raw)
+    members_step = make_members_step(trainer.tx, trainer.schedule)
+    member_step = make_train_step(trainer.tx, trainer.schedule, trainer.spec)
+
+    def stacked_call():
+        return members_step(stacked, batch, t, noise)
+
+    def looped_call():
+        return [member_step(s, batch[m], timesteps=t[m], noise=noise[m])
+                for m, s in enumerate(looped)]
+
+    s_metrics, s_counts, s_peak, s_above = peak_call(stacked_call)
+    l_metrics, l_counts, l_peak, l_above = peak_call(looped_call)
+    names = list(stacked.params)
+    l_loss = torch.stack([x["loss"] for x in l_metrics])
+    loss_rel = ((s_metrics["loss"] - l_loss).abs() / l_loss.abs()).max().item()
+    norm_rel = ((s_metrics["grad_norm"] - torch.stack([x["grad_norm"] for x in l_metrics])).abs()
+                / s_metrics["grad_norm"]).max().item()
+    g_err = g_max = 0.0
+    w_rel, w_name = 0.0, None
+    for m, state in enumerate(looped):
+        member = dict(state.model.named_parameters())
+        g_err = max(g_err, max((stacked.params[n].grad[m] - member[n].grad).abs().max().item()
+                               for n in names))
+        g_max = max(g_max, max(member[n].grad.abs().max().item() for n in names))
+        w_rel, w_name = max((w_rel, w_name), moved_within(
+            {n: start[n][m] for n in names}, {n: stacked.params[n][m].detach() for n in names},
+            {n: member[n].detach() for n in names}), key=lambda x: x[0])
+    log(f"[ensemble] CIFAR UNet2D {m_count} members at batch {ENS_BATCH} f32 (TF32 off), a "
+        f"gamma/beta of their own, one stacked step vs the {m_count} member-steps one at a time "
+        f"from the same states and draws on {card}: losses max rel {loss_rel:.3g}, gradient "
+        f"norms max rel {norm_rel:.3g}, clipped gradients max |dg| / max |g| "
+        f"{g_err / g_max:.3g} (tol {ENS_RTOL}), weights max ||dw|| / ||move|| {w_rel:.3g} "
+        f"({w_name}; tol {ENS_MOVE_RTOL}); launches stacked {s_counts}, looped {l_counts}")
+    if not (loss_rel <= ENS_RTOL and norm_rel <= ENS_RTOL and g_err <= ENS_RTOL * g_max
+            and w_rel <= ENS_MOVE_RTOL and s_counts == unet_counts(1, 1)
+            and l_counts == unet_counts(m_count, m_count)):
+        raise AssertionError("the stacked step disagrees with the member loop")
+    s_split = device_split(torch, stacked_call)
+    l_split = device_split(torch, looped_call)
+    s_sec = timed_steps(torch, stacked_call, ENS_TIMED)
+    l_sec = timed_steps(torch, looped_call, ENS_TIMED)
+    log(f"[ensemble] CIFAR {m_count} members at batch {ENS_BATCH} f32 on {card}: stacked "
+        f"{s_sec:.4f} s an ensemble step ({m_count / s_sec:.3f} member-steps/s), looped "
+        f"{l_sec:.4f} s ({m_count / l_sec:.3f} member-steps/s), mean of {ENS_TIMED}; peak "
+        f"stacked {s_peak:.2f} GiB ({s_above:.2f} above the states), looped {l_peak:.2f} GiB "
+        f"({l_above:.2f} above them, the stacked state included); a step's device time by "
+        f"group, stacked: {split_line(s_split)}; looped: {split_line(l_split)}")
+    log(f"[ensemble] stacked groups (ms) {({k: round(v, 3) for k, v in s_split.items()})}; "
+        f"looped {({k: round(v, 3) for k, v in l_split.items()})}")
+    del stacked, looped, start, batch, noise, s_metrics, l_metrics
+    torch.cuda.empty_cache()
+
+    # --- run_scanned against run, and identical subsets, under common noise ---
+    same = [subsets[0], *subsets[:1], *subsets[2:]]
+    trainer = trainer_of(same, common_noise=True)
+    a = trainer.init_state(own_gamma_beta, seed=1)
+    t0 = time.perf_counter()
+    a, _ = trainer.run(a, ENS_SCAN_STEPS, seed=7)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    reset_counts(ops)
-    loop_out, loop_grads = [], []
-    for m, model in enumerate(models):
-        out = model(x[m], t)
-        loop_grads.append(torch.autograd.grad(torch.mean((out - target[m]) ** 2),
-                                              list(model.parameters())))
-        loop_out.append(out.detach())
+    run_s = time.perf_counter() - t0
+    want = [x.cpu() for x in (list(a.params.values()) + a.ema + a.opt_state.mu
+                              + a.opt_state.nu)]
+    del a
+    b = trainer.init_state(own_gamma_beta, seed=1)
+    t0 = time.perf_counter()
+    b, metrics = trainer.run_scanned(b, ENS_SCAN_STEPS, seed=7, chunk=ENS_SCAN_CHUNK)
     torch.cuda.synchronize()
-    loop_counts = ops.launch_counts()
-    names = [n for n, _ in models[0].named_parameters()]
-    out_err = (outs - torch.stack(loop_out)).abs().max().item()
-    out_scale = torch.stack(loop_out).abs().max().item()
-    g_err = max((grads[n][m] - loop_grads[m][i]).abs().max().item()
-                for m in range(MEMBERS) for i, n in enumerate(names))
-    g_scale = max(g.abs().max().item() for lg in loop_grads for g in lg)
-    log(f"[members] {MEMBERS} stacked CIFAR UNet2D members, batch {MEMBERS_BATCH} each, f32, "
-        f"vmap(grad) vs the member loop on the card: output max |d| / max |out| "
-        f"{out_err / out_scale:.3g}, gradients max |dg| / max |g| {g_err / g_scale:.3g} "
-        f"(tol {MEMBERS_RTOL}); vmapped launches {counts}, loop launches {loop_counts}")
-    if not (out_err <= MEMBERS_RTOL * out_scale and g_err <= MEMBERS_RTOL * g_scale
-            and counts == unet_counts(1, 1) and loop_counts == unet_counts(MEMBERS, MEMBERS)):
-        raise AssertionError("stacked members under vmap disagree with the member loop")
+    scan_s = time.perf_counter() - t0
+    got = list(b.params.values()) + b.ema + b.opt_state.mu + b.opt_state.nu
+    bitwise = all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+    twins = all(torch.equal(x[0], x[1]) for x in got)
+    others = not torch.equal(got[0][0], got[0][2])
+    log(f"[ensemble] run_scanned({ENS_SCAN_STEPS}, chunk={ENS_SCAN_CHUNK}) vs run("
+        f"{ENS_SCAN_STEPS}), {m_count} members under common noise, members 0 and 1 on one "
+        f"subset: states bitwise equal={bitwise} (run {run_s / ENS_SCAN_STEPS:.4f} s a step, "
+        f"run_scanned {scan_s / ENS_SCAN_STEPS:.4f}; metrics {tuple(metrics['loss'].shape)}); "
+        f"members 0 and 1 bitwise equal={twins}, member 2 differs={others}")
+    if not (bitwise and twins and others and metrics["loss"].shape == (ENS_SCAN_STEPS, m_count)):
+        raise AssertionError("run_scanned, run or the common-noise twins disagree")
+    del b, got, want, trainer
+    torch.cuda.empty_cache()
+
+    # --- miniSD: stacked LoRA members against each member alone --------------
+    model = build_unet(MINISD_UNET, seed=3, device=dev).eval().requires_grad_(False)
+    n_gn = sum(isinstance(x, GroupNormSiLU) for x in model.modules())
+    n_attn = sum(isinstance(x, CrossAttention) for x in model.modules())
+    rng = torch.Generator(device=dev).manual_seed(4)
+    trees = []
+    for m in range(ENS_TTI_MEMBERS):
+        tree = lora_init(model, TTI_RANK, generator=torch.Generator(device=dev).manual_seed(m))
+        for ab in tree.values():  # a live side branch: up is 0 at init
+            ab["up"] = 1e-2 * torch.randn(ab["up"].shape, generator=rng, device=dev)
+        trees.append(tree)
+    n_img, artists = TTI_ARTISTS * TTI_PER_ARTIST, TTI_ARTISTS
+    latents = torch.randn((n_img, 4, 32, 32), generator=rng, device=dev)
+    emb = torch.randn((artists, 77, MINISD_UNET.cross_attention_dim), generator=rng, device=dev)
+    img_artist = torch.arange(n_img, device=dev) // TTI_PER_ARTIST
+    mm = ENS_TTI_MEMBERS
+    idx = torch.randint(0, n_img, (mm, TTI_BATCH), generator=rng, device=dev)
+    tt = torch.randint(0, MINISD_SCHEDULER.num_train_timesteps, (mm, TTI_BATCH), generator=rng,
+                       device=dev)
+    nn_ = torch.randn((mm, TTI_BATCH, 4, 32, 32), generator=rng, device=dev)
+    schedule = make_schedule(MINISD_SCHEDULER, dev)
+
+    def lora_run(members, count=True):
+        tx = make_optimizer("adamw", lr=3e-4, weight_decay=1e-6, lr_schedule="cosine",
+                            total_steps=TTI_STEPS)
+        tree = stack_lora_trees([trees[m] for m in members])
+        leaves = lora_leaves(tree)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        opt = tx.init(leaves)
+        sel = torch.tensor(members, device=dev)
+
+        def call():
+            return lora_members_step(model, tree, tx, opt, latents, emb, img_artist,
+                                     idx[sel], tt[sel], nn_[sel], schedule)
+        return call, tree, opt, leaves
+
+    call, tree, opt, leaves = lora_run(list(range(mm)))
+    loss, ls_counts, ls_peak, ls_above = peak_call(call)
+    s_mu = [x.clone() for x in opt.mu]
+    s_leaves = [x.detach().clone() for x in leaves]
+    alone, la_counts, la_peak, mu_err, mu_max, lw_rel = [], None, 0.0, 0.0, 0.0, 0.0
+    for m in range(mm):
+        a_call, a_tree, a_opt, a_leaves = lora_run([m])
+        a_loss, counts, peak, _ = peak_call(a_call)
+        la_counts = counts if la_counts is None else add_counts(la_counts, counts)
+        la_peak = max(la_peak, peak)
+        alone.append((a_call, a_loss))
+        for i, (got_mu, want_mu) in enumerate(zip(s_mu, a_opt.mu)):
+            mu_err = max(mu_err, (got_mu[m] - want_mu[0]).abs().max().item())
+            mu_max = max(mu_max, want_mu.abs().max().item())
+        start_m = {i: lora_leaves(stack_lora_trees([trees[m]]))[i][0] for i in range(len(leaves))}
+        lw_rel = max(lw_rel, moved_within(start_m, {i: s_leaves[i][m] for i in start_m},
+                                          {i: a_leaves[i][0].detach() for i in start_m})[0])
+    a_losses = torch.cat([x for _, x in alone])
+    l_rel = ((loss - a_losses).abs() / a_losses.abs()).max().item()
+    want_one = tti_counts(n_attn, n_gn, n_gn - 3, 1, 1)
+    log(f"[ensemble] miniSD {mm} LoRA members (rank {TTI_RANK}) at batch {TTI_BATCH} f32, the "
+        f"base frozen, one members_step vs each member alone on {card}: losses max rel "
+        f"{l_rel:.3g}, first moments max |d| / max |m| {mu_err / mu_max:.3g} (tol {ENS_RTOL}), "
+        f"LoRA leaves max ||dw|| / ||move|| {lw_rel:.3g} (tol {ENS_MOVE_RTOL}); launches "
+        f"stacked {ls_counts}, alone {la_counts}")
+    if not (l_rel <= ENS_RTOL and mu_err <= ENS_RTOL * mu_max and lw_rel <= ENS_MOVE_RTOL
+            and ls_counts == want_one and la_counts == add_counts(*[want_one] * mm)):
+        raise AssertionError("stacked LoRA members disagree with each member alone")
+    ls_split = device_split(torch, call)
+    la_split = device_split(torch, lambda: [c() for c, _ in alone])
+    ls_sec = timed_steps(torch, call, ENS_TIMED)
+    la_sec = timed_steps(torch, lambda: [c() for c, _ in alone], ENS_TIMED)
+    log(f"[ensemble] miniSD {mm} LoRA members at batch {TTI_BATCH} f32 on {card}: stacked "
+        f"{ls_sec:.4f} s an ensemble step ({mm / ls_sec:.4f} member-steps/s), alone "
+        f"{la_sec:.4f} s ({mm / la_sec:.4f}), mean of {ENS_TIMED}; peak stacked "
+        f"{ls_peak:.2f} GiB ({ls_above:.2f} above the base), alone {la_peak:.2f} GiB; a step's "
+        f"device time, stacked: {split_line(ls_split)}; alone: {split_line(la_split)}")
+    del model, trees, tree, opt, leaves, alone, latents, nn_, s_mu, s_leaves
+    torch.cuda.empty_cache()
+
+    # --- cli.main --scan_chunk on the CIFAR stand-in, and its per-step loop ---
+    total = unet_counts(0, 0)
+    for tag, extra in (("--scan_chunk", ["--scan_chunk", str(ENS_MAIN_CHUNK)]),
+                       ("per-step loop", [])):
+        outdir = os.path.join(root, "ensemble_main", "scan" if extra else "loop")
+        r, wall, counts, _, peak = timed_call(torch, ops, main_cli.main, [
+            "--dataset", "cifar", "--removal_dist", "full", "--training_steps",
+            str(ENS_MAIN_STEPS), "--batch_size", str(ENS_BATCH), "--log_freq",
+            str(ENS_MAIN_CHUNK), "--ckpt_freq", "0", "--sample_freq", "0", "--outdir", outdir,
+            "--device", "cuda", *extra])
+        train_s = r["train_seconds"] - r["ckpt_seconds"]
+        log(f"[ensemble] cli.main cifar retrain full {ENS_MAIN_STEPS} steps at batch "
+            f"{r['batch_size']} f32, {tag} on {card}: {ENS_MAIN_STEPS / train_s:.3f} "
+            f"member-steps/s without the checkpoint's {r['ckpt_seconds']:.3f} s, call "
+            f"{wall:.3f} s, peak {peak:.2f} GiB, loss {r['loss']:.5f}, launches {counts}")
+        if not (counts == unet_counts(ENS_MAIN_STEPS, ENS_MAIN_STEPS)
+                and math.isfinite(r["loss"])
+                and get_max_steps(r["model_dir"]) == ENS_MAIN_STEPS):
+            raise AssertionError(f"cli.main {tag}: launches {counts}, loss {r['loss']}")
+        total = add_counts(total, counts)
+    return total
 
 
 def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
@@ -2728,7 +3032,9 @@ def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
         f"eval + {TRAIN_SAMPLES} samples x {TRAIN_SAMPLE_STEPS} steps per member "
         f"{summary['sample_seconds']:.3f} s of sampling), call {wall:.3f} s "
         f"(warm-up call of {TRAIN_WARM_STEPS} steps {warm_s:.3f} s), peak {peak_gib:.2f} GiB")
-    want = unet_counts(member_steps + m * (1 + TRAIN_SAMPLE_STEPS), member_steps)
+    # The members are stacked: one launch a kernel site a step for all of them;
+    # the eval loss and the samples run member by member.
+    want = unet_counts(steps + m * (1 + TRAIN_SAMPLE_STEPS), steps)
     log(f"[train] launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"training path launches {counts}, expected {want}")
@@ -2806,7 +3112,8 @@ def check_unlearn(torch, np, ops, root: str, card: str, dev, vq_weights: str) ->
     each between a counter reset and a read with the launches the code implies.
     Returns the summed kernel launches."""
     from group_attribution_for_diffusion_models_tpu_torch.cli import (
-        attribute, empirical_verification, main as main_cli, shapley_groundtruth, unlearn)
+        attribute, empirical_verification, main as main_cli, shapley_groundtruth,
+        train_ensemble, unlearn)
     from group_attribution_for_diffusion_models_tpu_torch.config import constants
     from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
     from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
@@ -2950,7 +3257,9 @@ def check_unlearn(torch, np, ops, root: str, card: str, dev, vq_weights: str) ->
                f"WoodFisher {sec['woodfisher']:.3f} s over {wf} batches of {bs // 4})",
                out, wall, peak)
         members = 2**UNL_SMALL_CLASSES - 1
-        gt_steps = members * UNL_GT_STEPS
+        # The enumerated subsets train in stacked train_ensemble calls of the
+        # default --chunk_size.
+        gt_steps = -(-members // train_ensemble.MEMBERS_PER_CALL) * UNL_GT_STEPS
         g, wall, peak = call("shapley_groundtruth", shapley_groundtruth.main, [
             "--dataset", "cifar", "--outdir", os.path.join(outdir, "groundtruth"),
             "--training_steps", str(UNL_GT_STEPS), "--batch_size", str(UNL_BATCH),
@@ -3574,6 +3883,7 @@ def run(torch, tmp: str) -> int:
     # As train_ensemble sets it: cuDNN's default backward algorithms may sum
     # with atomics, and identical members must stay bit-identical.
     torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
     attn_rows = check_attention(torch, F, ops, dev)
     attn_bwd_rows = check_attention_bwd(torch, F, ops, dev)
     gn_rows = check_group_norm(torch, F, ops, dev)
@@ -3581,6 +3891,8 @@ def run(torch, tmp: str) -> int:
     gn_cache: dict = {}
     check_gn_census(torch, ops, dev, cache=gn_cache)
     jl_row = check_jl_projection(torch, ops, dev)
+    log(f"[kernels] phase (with [census]) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     spec = get_config("cifar").unet
     model = build_unet(spec, seed=0).eval()
@@ -3603,8 +3915,12 @@ def run(torch, tmp: str) -> int:
     model.cpu()
     check_prune_gn(torch, np, ops, model, spec, dev, gn_cache)
     check_train_step(torch, np, spec, dev)
-    check_members(torch, np, ops, spec, dev)
+    log(f"[forward] phase (with [prune-gn], [train-step]) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ens_counts = check_ensemble(torch, np, ops, dev, card, tmp)
+    log(f"[ensemble] phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     model_dir, out = os.path.join(tmp, "model"), os.path.join(tmp, "samples")
     sd = model.cpu().state_dict()
     save_checkpoint(model_dir, 0, sd, sd, unet_spec=spec)
@@ -3650,13 +3966,22 @@ def run(torch, tmp: str) -> int:
         f"(tol {SAMPLE_ATOL}), finite={bool(torch.isfinite(gpu_imgs).all())}")
     if not (err <= SAMPLE_ATOL and torch.isfinite(gpu_imgs).all()):
         raise AssertionError("sampling on the card disagrees with the CPU")
+    log(f"[main] phase (with [reference]) {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     train_counts = check_training_path(torch, np, ops, train_ensemble, tmp, card)
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_trak_step(torch, np, ops, spec, dev)
     trak_counts = check_trak_path(torch, np, ops, grad_features, traks, model_dir, tmp, card)
+    log(f"[trak] phase (with [trak-step]) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     pipe_counts = check_pipeline(torch, np, ops, tmp, card)
+    log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_towers(torch, np, dev, card)
     score_counts = check_scores(torch, np, ops, tmp, card)
+    log(f"[scores] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ldm_counts = check_ldm(torch, np, ops, tmp, card, dev)
     log(f"[ldm] phase {time.perf_counter() - t0:.1f} s")
@@ -3674,12 +3999,13 @@ def run(torch, tmp: str) -> int:
     data_counts = check_data(torch, np, ops, tmp, data_root, card, dev)
     log(f"[data] phase {time.perf_counter() - t0:.1f} s")
 
-    # launches: the ten main paths, sampling, training, TRAK, the estimation
-    # loop, the sample behaviors, the latent-diffusion workload, the
+    # launches: the eleven main paths, sampling, cli.main's scanned and
+    # per-step loops, training, TRAK, the estimation loop, the sample behaviors, the latent-diffusion workload, the
     # text-to-image tier, the single-model jobs, per-example attribution and
     # local behaviors, and workload 1's other datasets.
-    launches = add_counts(sample_counts, train_counts, trak_counts, pipe_counts, score_counts,
-                          ldm_counts, tti_counts_, unlearn_counts, local_counts, data_counts)
+    launches = add_counts(sample_counts, ens_counts, train_counts, trak_counts, pipe_counts,
+                          score_counts, ldm_counts, tti_counts_, unlearn_counts, local_counts,
+                          data_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

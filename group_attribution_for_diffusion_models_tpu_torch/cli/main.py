@@ -24,13 +24,19 @@ grid is decoded.
 
 Each step's timesteps and noise come from a generator seeded from
 (``--opt_seed``, step), as the JAX CLI keys each step; the streams differ
-from threefry's. Runs on CUDA unless ``--device cpu`` is given; on CUDA,
-float32 means float32 (TF32 off) and cuDNN runs deterministic algorithms.
+from threefry's. ``--scan_chunk N`` is the JAX CLI's on-device loop: the
+subset stays on the device, each step's batch indices are drawn there,
+uniform with replacement, from a stream of their own (the counterpart of
+``fold_in(key, 0x5CA9)``), and up to N steps run with no host read between
+them, chunks ending at the log, sample and checkpoint steps; the timesteps
+and noise are the per-step loop's, so only the batch composition differs.
+Runs on CUDA unless ``--device cpu`` is given; on CUDA, float32 means
+float32 (TF32 off) and cuDNN runs deterministic algorithms.
 
 Not ported yet: the prompt-conditional path (``imagenette``,
 ``synthetic_*_cond``), which needs ``pipelines.ImagenetteCaptioner`` (ROADMAP
-queue A item 9) and the LDMBert tower (item 8); ``--profile_dir`` (item 9);
-``--scan_chunk`` (item 6). Each exits with the item's name.
+queue A item 9) and the LDMBert tower (item 8); ``--profile_dir`` (item 9).
+Each exits with the item's name.
 
 Usage (smoke, CPU):
     python -m group_attribution_for_diffusion_models_tpu_torch.cli.main \\
@@ -54,7 +60,7 @@ from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import make_schedule
 from ..models.unet2d import UNet2D, build_unet
 from ..models.vqvae import make_vq_decode_fn
-from ..parallel.ensemble import _step_seed
+from ..parallel.ensemble import _step_seed, derived_seed
 from ..training.state import TrainState, make_optimizer
 from ..training.train import make_train_step
 from ..utils.ckpt import load_checkpoint, resume_or_init, save_checkpoint
@@ -73,6 +79,7 @@ from .common import (
 )
 
 GRID_STEPS = 100  # DDIM steps of the in-training EMA sample grid
+SCAN_BATCH_STREAM = 0x5CA9  # --scan_chunk's batch-index stream (the JAX CLI's fold_in)
 
 
 def parse_args(argv=None):
@@ -95,7 +102,10 @@ def parse_args(argv=None):
                         help="as in the JAX CLI, no effect: the EMA runs without warm-up")
     parser.add_argument("--no_antithetic", action="store_true", default=False)
     parser.add_argument("--scan_chunk", type=int, default=0,
-                        help="not ported (ROADMAP queue A item 6); 0 = per-step loop")
+                        help="steps per chunk of the on-device loop (batch indices "
+                             "drawn on the device, uniform with replacement; no host "
+                             "read inside a chunk); 0 = the per-step loop over "
+                             "shuffled epochs")
     parser.add_argument("--keep_all_ckpts", action="store_true", default=False)
     parser.add_argument("--precompute_stage", type=str, default="reuse",
                         choices=["none", "save", "reuse"],
@@ -127,9 +137,6 @@ def _unported(args, cfg) -> None:
     if args.profile_dir:
         raise SystemExit("--profile_dir: a torch.profiler trace of the training loop is not "
                          "ported yet (ROADMAP queue A item 9)")
-    if args.scan_chunk:
-        raise SystemExit("--scan_chunk: the loop without a host round trip a step is not "
-                         "ported yet (ROADMAP queue A item 6)")
 
 
 def save_sample_grid(model: UNet2D, cfg, spec, n: int, step: int, model_dir: str, device,
@@ -265,11 +272,23 @@ def main(argv=None):
         save_sample_grid(grid_model, cfg, spec, n_grid, step, model_dir, device, decode_fn)
 
     eff_batch = min(batch_size, len(subset))
-    batches = batch_iterator(subset, eff_batch, seed=args.opt_seed)
-    # A resumed run continues the batch order where it stopped (the JAX CLI
-    # starts it over; ROADMAP C4).
-    for _ in range(start_step):
-        next(batches)
+    if args.scan_chunk:
+        images_dev = to_device(subset.images, device).contiguous()
+
+        def next_batch(step_i: int) -> torch.Tensor:
+            gen = torch.Generator(device=device).manual_seed(
+                derived_seed(_step_seed(args.opt_seed, step_i), SCAN_BATCH_STREAM))
+            return images_dev[torch.randint(0, len(subset), (eff_batch,), generator=gen,
+                                            device=device)]
+    else:
+        batches = batch_iterator(subset, eff_batch, seed=args.opt_seed)
+        # A resumed run continues the batch order where it stopped (the JAX
+        # CLI starts it over; ROADMAP C4).
+        for _ in range(start_step):
+            next(batches)
+
+        def next_batch(step_i: int) -> torch.Tensor:
+            return to_device(next(batches)[0], device)
     tracker = tracker_for(args, f"{args.dataset}_{args.method}")
 
     def sync() -> None:
@@ -281,11 +300,19 @@ def main(argv=None):
 
     sampling_time = ckpt_time = 0.0
     t_start = time.time()
-    for step_i in range(start_step, training_steps):
-        images, _ = next(batches)
-        gen = torch.Generator(device=device).manual_seed(_step_seed(args.opt_seed, step_i))
-        metrics = step_fn(state, to_device(images, device), gen)
-        done = step_i + 1
+    done = start_step
+    while done < training_steps:
+        end = done + 1
+        if args.scan_chunk:
+            # A chunk ends at the next log, sample or checkpoint step.
+            end = min(training_steps, done + args.scan_chunk)
+            for f in (args.log_freq, sample_freq, ckpt_freq):
+                if f:
+                    end = min(end, (done // f + 1) * f)
+        for step_i in range(done, end):
+            gen = torch.Generator(device=device).manual_seed(_step_seed(args.opt_seed, step_i))
+            metrics = step_fn(state, next_batch(step_i), gen)
+        done = end
         if done % args.log_freq == 0 or done == training_steps:
             loss, norm = float(metrics["loss"]), float(metrics.get("grad_norm", float("nan")))
             print(f"Step[{done}/{training_steps}] loss={loss:.5f} grad_norm={norm:.4f} "

@@ -35,6 +35,7 @@ from ..data import create_dataset, sample_removal
 from ..utils.jsonl import append_record, filter_records
 from . import train_ensemble
 from .common import add_common_args, config_for
+from .train_ensemble import MEMBERS_PER_CALL
 
 
 def parse_args(argv=None):
@@ -42,12 +43,15 @@ def parse_args(argv=None):
     add_common_args(parser)
     parser.add_argument("--training_steps", type=int, default=None)
     parser.add_argument("--batch_size", type=int, default=None)
-    parser.add_argument("--chunk_size", type=int, default=32,
-                        help="members per ensemble invocation")
+    parser.add_argument("--chunk_size", type=int, default=MEMBERS_PER_CALL,
+                        help="members per train_ensemble call, stacked in one launch "
+                             f"(default {MEMBERS_PER_CALL}, shapley_pipeline's)")
     parser.add_argument("--eval_t_min", type=int, default=0)
     parser.add_argument("--eval_t_max", type=int, default=None)
     parser.add_argument("--log_freq", type=int, default=0,
-                        help="tracker log interval in steps (0 = only final)")
+                        help="scan-chunk size in steps (train_ensemble --log_freq: "
+                             "the host reads the losses once a chunk; 0 = the whole "
+                             "run in one chunk)")
     parser.add_argument("--fit_counts", type=str, default="10,24,50,100,200",
                         help="KernelSHAP fit-subset counts for the convergence curve "
                              "(even counts keep shapley_paired's pairs complete)")

@@ -56,6 +56,7 @@ from ..data import create_dataset
 from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
 from .common import add_common_args, config_for
+from .train_ensemble import MEMBERS_PER_CALL
 
 
 def parse_args(argv=None):
@@ -90,13 +91,19 @@ def parse_args(argv=None):
     parser.add_argument("--inception_weights", type=str, default=None,
                         help="InceptionV3 state dict for --behavior fid_value / is "
                              "(default: the seeded random tower)")
-    parser.add_argument("--chunk_size", type=int, default=32,
-                        help="members per train_ensemble call")
+    parser.add_argument("--chunk_size", type=int, default=MEMBERS_PER_CALL,
+                        help="members per train_ensemble call: the members that "
+                             "share one launch of each kernel, all held on the card "
+                             f"at once (default {MEMBERS_PER_CALL}: what the CIFAR and "
+                             "CelebA workloads fit on one 80 GB H100 at their "
+                             "default batch)")
     parser.add_argument("--eval_t_min", type=int, default=0)
     parser.add_argument("--eval_t_max", type=int, default=None,
                         help="probe-timestep band for --behavior eval_loss")
     parser.add_argument("--log_freq", type=int, default=0,
-                        help="tracker log interval in steps (train_ensemble --log_freq)")
+                        help="scan-chunk size in steps (train_ensemble --log_freq: "
+                             "the host reads the losses once a chunk; 0 = the whole "
+                             "run in one chunk)")
     parser.add_argument(
         "--save_ckpts", action=argparse.BooleanOptionalAction, default=True,
         help="checkpoint every subset member; with --no-save_ckpts the DB row "

@@ -2,7 +2,10 @@
 
 Port of the JAX package's ``cli/train_ensemble.py``: give it a seed range
 and it draws each seed's removal subset, trains one U-Net per subset
-(`parallel.ensemble.EnsembleTrainer`), optionally records each member's
+(`parallel.ensemble.EnsembleTrainer`: the members stacked, each kernel
+launched once for all of them, in chunks of ``--log_freq`` steps through
+`run_scanned`, the host reading the losses once a chunk, as the JAX CLI's
+``lax.scan`` chunks), optionally records each member's
 fixed-probe eval loss and samples it with DDIM, writes one checkpoint per
 member and appends one JSONL provenance row per member, the rows the LDS
 tier reads. With ``--score fid|is|fid_is`` each member's samples are scored
@@ -62,7 +65,7 @@ from ..diffusion.schedulers import add_noise, make_schedule
 from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet
 from ..models.vqvae import make_vq_decode_fn
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
-from ..training.state import TrainState, make_optimizer
+from ..training.state import TrainState, make_optimizer, unstack_state
 from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
@@ -84,6 +87,10 @@ from .common import (
 EVAL_PROBE_SEED = 12345
 REF_IMAGES = 2048  # training images the in-loop FID's reference stats are taken over
 TOWER_BATCH = 256
+# Members of one call, all stacked on the card at once, that one 80 GB H100
+# holds at the workload's default batch: CIFAR's 3 x 128 and CelebA's 3 x 32.
+# The default --chunk_size of shapley_pipeline and shapley_groundtruth.
+MEMBERS_PER_CALL = 3
 
 
 def parse_args(argv=None):
@@ -146,8 +153,9 @@ def parse_args(argv=None):
                              "common random numbers: every member shares the init "
                              "and the per-step slot/timestep/noise draws")
     parser.add_argument("--log_freq", type=int, default=0,
-                        help="tracker log interval in steps (0 = only final; "
-                             "each log waits for the device)")
+                        help="scan-chunk size and tracker log interval in steps "
+                             "(0 = the whole run in one chunk, only the final log); "
+                             "the host reads the losses once a chunk")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain versions")
     return parser.parse_args(argv)
@@ -353,19 +361,22 @@ def main(argv=None):
     if args.load:
         params = load_checkpoint(args.load)["params"]
         print(f"all members start from {args.load}")
-    states = trainer.init_state(init_fn, params=params, seed=args.opt_seed)
+    stacked = trainer.init_state(init_fn, params=params, seed=args.opt_seed)
 
     tracker = tracker_for(args, f"{args.dataset}_ensemble_{args.method}")
 
-    def log_fn(metrics, step):
-        tracker.log({"loss_mean": float(metrics["loss"].mean())}, step)
+    def log_chunk(metrics, end):
+        if args.log_freq > 0:
+            tracker.log({"loss_mean": float(metrics["loss"][-1].mean())}, end)
 
     t_start = time.time()
     losses = np.full(len(seeds), np.nan)
     if training_steps > 0:
-        states, metrics = trainer.run(states, training_steps, seed=args.opt_seed,
-                                      log_every=args.log_freq, log_fn=log_fn)
-        losses = metrics["loss"].cpu().numpy()
+        # Chunks of log_freq steps (one chunk without it), as the JAX CLI scans.
+        stacked, metrics = trainer.run_scanned(stacked, training_steps, seed=args.opt_seed,
+                                               chunk=args.log_freq or training_steps,
+                                               chunk_fn=log_chunk)
+        losses = metrics["loss"][-1].cpu().numpy()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_time = time.time() - t_start
@@ -378,6 +389,9 @@ def main(argv=None):
     print(f"{len(seeds)} members x {training_steps} steps in {train_time:.1f}s; "
           f"losses {losses.round(4).tolist()}")
     summary.update(train_seconds=train_time, losses=losses.tolist())
+    # Each member as a TrainState of its own, for evaluation, sampling and checkpoints.
+    states = [unstack_state(stacked, m) for m in range(len(seeds))]
+    del stacked
 
     scratch = UNet2D(spec, compute_dtype=compute_dtype).to(device).eval()
     eval_losses = None

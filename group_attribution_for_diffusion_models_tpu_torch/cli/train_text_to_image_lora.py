@@ -22,12 +22,15 @@ text_to_image/train_text_to_image_lora.py:577-1545):
 * Methods: retrain (LoRA from scratch), pruned_ft (continue from a pruned
   LoRA), gd / sparse_gd (from a trained or pruned LoRA); all train the same
   loss, as the JAX CLI does, from ``--lora_dir`` when it is given.
-* ``--num_seeds`` members step one after another, each with its own LoRA
-  and AdamW state (weight decay 1e-6, cosine schedule over
-  ``--max_train_steps``, the JAX optimizer's clip), as `parallel.ensemble`
-  does; the JAX CLI vmaps them. Each member's batch indices, timesteps and
-  noise are drawn on the device from a generator seeded by (opt_seed, step,
-  removal seed), and `member_step` takes them injected.
+* ``--num_seeds`` members train as one program, as the JAX CLI vmaps them:
+  their LoRA trees and AdamW states (weight decay 1e-6, cosine schedule
+  over ``--max_train_steps``, the JAX optimizer's clip, a norm per member)
+  are stacked, the frozen base is shared, and `members_step` runs them
+  through one `members_forward` a microbatch, each kernel launched once for
+  every member. Each member's batch indices, timesteps and noise are drawn
+  on the device from a generator seeded by (opt_seed, step, removal seed),
+  and `members_step` takes them injected. ``--num_seeds`` bounds the
+  members that share a launch.
 
 ``synthetic*`` datasets run `tiny_sd_spec`, a 2-layer CLIP of width 32 and
 the channel mean of the images as stand-in latents; any other dataset needs
@@ -46,7 +49,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
 from ..config.registry import (
     MINISD_SCHEDULER,
@@ -66,8 +68,10 @@ from ..models.lora import (
     lora_init,
     lora_num_params,
     save_lora_npz,
+    stack_lora_trees,
+    unstack_lora_tree,
 )
-from ..models.unet2d import UNet2D, build_unet
+from ..models.unet2d import UNet2D, build_unet, members_forward
 from ..parallel.ensemble import derived_seed, pad_member_indices
 from ..training.state import Optimizer, OptState, make_optimizer
 from ..utils.device import resolve_device
@@ -113,7 +117,8 @@ def parse_args(argv=None):
                                  "aoi", "full", "counterfactual"])
     parser.add_argument("--removal_seed", type=int, default=0)
     parser.add_argument("--num_seeds", type=int, default=1,
-                        help=">1 trains that many subset LoRAs, one after another")
+                        help=">1 trains that many subset LoRAs side by side, "
+                             "stacked in one program")
     parser.add_argument("--datamodel_alpha", type=float, default=0.5)
     parser.add_argument("--removal_unit", type=str, default="artist",
                         choices=["artist", "filename"])
@@ -192,7 +197,7 @@ def lora_leaves(tree: LoraTree) -> List[torch.Tensor]:
     return [ab[k] for ab in tree.values() for k in ("down", "up")]
 
 
-def member_step(
+def members_step(
     model: UNet2D,
     lora: LoraTree,
     tx: Optimizer,
@@ -208,38 +213,43 @@ def member_step(
     snr_gamma: Optional[float] = None,
     microbatch: int = 0,
 ) -> torch.Tensor:
-    """One LoRA step of one member on injected draws: the latents (N, C, h,
-    w) at `idx`, each image's caption embedding caption_emb[img_artist[idx]],
-    the timesteps `t` and `noise`. The loss is the epsilon MSE per example,
-    weighted by min(snr_t, gamma) / snr_t with `snr_gamma`, averaged; with
-    `microbatch` < batch the gradient is summed over equal slices and divided
-    by their count. AdamW updates the LoRA leaves in place. Returns the loss."""
+    """One LoRA step of M stacked members on injected draws. `lora` and
+    `opt_state` carry a leading member axis (`stack_lora_trees`); member m
+    trains on the latents (N, C, h, w) at idx[m], each image's caption
+    embedding caption_emb[img_artist[idx[m]]], the timesteps t[m] and
+    noise[m] ((M, B) and (M, B, C, h, w)). The loss is the epsilon MSE per
+    example, weighted by min(snr_t, gamma) / snr_t with `snr_gamma`,
+    averaged; with `microbatch` < batch the gradient is summed over equal
+    slices and divided by their count. AdamW updates the stacked leaves in
+    place, each member clipped by its own norm. Returns the (M,) losses."""
     lat, ehs = latents[idx], caption_emb[img_artist[idx]]
     leaves = lora_leaves(lora)
-    buffers = lora_collection(lora)
+    weights = lora_collection(lora)
 
     def loss_of(sl: slice) -> torch.Tensor:
-        t_i, noise_i = t[sl], noise[sl]
-        x_t = add_noise(schedule, lat[sl], noise_i, t_i)
-        eps = functional_call(model, buffers, (x_t, t_i, ehs[sl]))
-        err = ((eps - noise_i) ** 2).mean(dim=(1, 2, 3))
+        t_i, noise_i = t[:, sl], noise[:, sl]
+        x_t = add_noise(schedule, lat[:, sl], noise_i, t_i)
+        eps = members_forward(model, weights, x_t, t_i, ehs[:, sl])
+        err = ((eps - noise_i) ** 2).mean(dim=(2, 3, 4))
         if snr is not None:
             s = snr[t_i]
             err = err * torch.clamp(s, max=snr_gamma) / s
-        return err.mean()
+        return err.mean(dim=1)
 
-    nm = len(idx) // microbatch if 0 < microbatch < len(idx) else 1
-    size = len(idx) // nm
+    batch = idx.shape[1]
+    nm = batch // microbatch if 0 < microbatch < batch else 1
+    size = batch // nm
     grads, loss = None, None
     with torch.enable_grad():
         for i in range(nm):
             li = loss_of(slice(i * size, (i + 1) * size))
-            g = torch.autograd.grad(li, leaves)
+            # Members are independent: the sum's gradient is each member's own.
+            g = torch.autograd.grad(li.sum(), leaves)
             grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
             loss = li.detach() if loss is None else loss + li.detach()
     if nm > 1:
         grads, loss = [g / nm for g in grads], loss / nm
-    tx.update(grads, opt_state, leaves)
+    tx.update(grads, opt_state, leaves, members=idx.shape[0])
     return loss
 
 
@@ -359,20 +369,19 @@ def main(argv=None) -> Dict:
     tx = make_optimizer("adamw", lr=args.learning_rate, weight_decay=1e-6,
                         lr_schedule="cosine", total_steps=total_steps)
 
-    # --- LoRA per member ------------------------------------------------------
+    # --- the members' LoRA trees, stacked -------------------------------------
     if args.lora_dir:
         base_tree = load_lora_npz(args.lora_dir, device)
         print(f"LoRA loaded from {args.lora_dir} ({lora_num_params(base_tree)} params)")
-        trees = [{n: {k: v.clone() for k, v in ab.items()} for n, ab in base_tree.items()}
-                 for _ in seeds]
+        tree = stack_lora_trees([base_tree] * len(seeds))
     else:
-        trees = [lora_init(model, args.rank,
-                           generator=torch.Generator(device=device).manual_seed(1000 + s))
-                 for s in seeds]
-    for tree in trees:
-        for leaf in lora_leaves(tree):
-            leaf.requires_grad_(True)
-    opt_states = [tx.init(lora_leaves(tree)) for tree in trees]
+        tree = stack_lora_trees([
+            lora_init(model, args.rank,
+                      generator=torch.Generator(device=device).manual_seed(1000 + s))
+            for s in seeds])
+    for leaf in lora_leaves(tree):
+        leaf.requires_grad_(True)
+    opt_state = tx.init(lora_leaves(tree))
 
     table, sizes = pad_member_indices([r[0] for r in removals], pad_multiple=8)
     table = torch.from_numpy(table).long().to(device)
@@ -389,11 +398,12 @@ def main(argv=None) -> Dict:
 
     tracker = tracker_for(args, f"{args.dataset}_lora_{args.method}")
     shape = (batch,) + tuple(latents.shape[1:])
-    losses = [torch.zeros((), device=device) for _ in seeds]
+    losses = torch.zeros(len(seeds), device=device)
     time_rows = []
     sync()
     t_start = time.time()
     for step_i in range(total_steps):
+        draws = []
         for m, seed in enumerate(seeds):
             gen = torch.Generator(device=device).manual_seed(
                 derived_seed(args.opt_seed, step_i, seed))
@@ -401,9 +411,10 @@ def main(argv=None) -> Dict:
             t = torch.randint(0, sched_spec.num_train_timesteps, (batch,), generator=gen,
                               device=device)
             noise = torch.randn(shape, generator=gen, device=device)
-            losses[m] = member_step(model, trees[m], tx, opt_states[m], latents, caption_emb,
-                                    img_artist, table[m][slot], t, noise, schedule, snr,
-                                    args.snr_gamma, args.microbatch)
+            draws.append((table[m][slot], t, noise))
+        idx, t, noise = (torch.stack(x) for x in zip(*draws))
+        losses = members_step(model, tree, tx, opt_state, latents, caption_emb, img_artist,
+                              idx, t, noise, schedule, snr, args.snr_gamma, args.microbatch)
         if (args.log_freq and (step_i + 1) % args.log_freq == 0) or step_i + 1 == total_steps:
             vals = [float(v) for v in losses]
             el = time.time() - t_start
@@ -420,12 +431,12 @@ def main(argv=None) -> Dict:
     final = [float(v) for v in losses]
     paths = []
     for m, seed in enumerate(seeds):
-        paths.append(_write_member(args, seed, trees[m], removals[m], time_rows, final[m],
-                                   train_time, len(seeds), db))
+        paths.append(_write_member(args, seed, unstack_lora_tree(tree, m), removals[m],
+                                   time_rows, final[m], train_time, len(seeds), db))
     print(f"{len(seeds)} LoRA members in {train_time:.1f}s -> {db}")
     return {"seeds": seeds, "lora_paths": paths, "losses": final, "batch": batch,
             "subset_sizes": sizes.tolist(), "latents_cached": latents_cached,
-            "lora_params": lora_num_params(trees[0]), "train_seconds": train_time,
+            "lora_params": lora_num_params(unstack_lora_tree(tree, 0)), "train_seconds": train_time,
             "step_seconds": np.diff([0.0] + [t for _, t in time_rows]).tolist(),
             "seconds": seconds, "db": db}
 

@@ -10,7 +10,9 @@ functional_call`` attaches: the side branch y += (x @ down) @ up, no merged
 copy of the base. `lora_merge` folds a tree into a state dict instead
 (W_eff = W + scale * (down @ up)^T), as sampling from one LoRA does.
 Ranks are leaf shapes, so rank pruning (`prune_lora`, numpy, bit for bit
-the JAX function) gives heterogeneous ranks for free. A tree is saved as
+the JAX function) gives heterogeneous ranks for free. `stack_lora_trees`
+puts M members' trees of one shape on a leading member axis, the stacked
+side branch `unet2d.members_forward` runs over one frozen base. A tree is saved as
 the JAX CLI's ``lora_weights.npz`` (``<JAX path>::down`` / ``::up``), so one
 file serves both packages (`save_lora_npz`, `load_lora_npz`).
 
@@ -117,6 +119,18 @@ def lora_collection(lora_tree: Mapping) -> Dict[str, torch.Tensor]:
         out[f"{name}.lora_down"] = ab["down"]
         out[f"{name}.lora_up"] = ab["up"]
     return out
+
+
+def stack_lora_trees(trees: Sequence[Mapping]) -> LoraTree:
+    """Member trees of one shape stacked on a leading member axis (copies)."""
+    return {name: {k: torch.stack([t[name][k].detach() for t in trees]) for k in ("down", "up")}
+            for name in trees[0]}
+
+
+def unstack_lora_tree(tree: Mapping, member: int) -> LoraTree:
+    """Member `member`'s tree of a stacked one (copies)."""
+    return {name: {k: v[member].detach().clone() for k, v in ab.items()}
+            for name, ab in tree.items()}
 
 
 def lora_merge(state_dict: Mapping[str, torch.Tensor], lora_tree: Mapping,

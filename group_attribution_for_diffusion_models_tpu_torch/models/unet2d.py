@@ -22,15 +22,25 @@ push after conv_in, after every resnet(+attention) and after every
 downsample; up-blocks pop in reverse and concatenate [h, skip] on channels.
 Submodule names are the diffusers state-dict keys (``down_blocks.I.resnets.J``,
 ``mid_block.attentions.0``, ``up_blocks.I.upsamplers.0.conv``, ...).
+
+`members_forward` runs M members of one architecture in one pass, the
+counterpart of ``jax.vmap(model.apply)`` over stacked parameters: every
+submodule call is one ``torch.func.vmap`` of ``functional_call`` over the
+members' weights, so each kernel launches once for all of them. The vmap is
+per module, not around the whole forward, so that remat keeps working: the
+checkpoint wraps the vmapped block, and its backward recomputes the block
+outside any vmap (a checkpoint inside a vmap cannot replay the block once
+the vmap has returned).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -93,6 +103,7 @@ class UNet2D(nn.Module):
         self.remat = remat
         self._remat_context = _remat_context_fn(remat_policy)
         self.compute_dtype = compute_dtype
+        self._members: Optional[Callable] = None  # set by `members_forward`
         boc = spec.block_out_channels
         groups, eps = spec.norm_num_groups, spec.norm_eps
         temb_ch = boc[0] * 4
@@ -174,15 +185,22 @@ class UNet2D(nn.Module):
         self.conv_norm_out = GroupNormSiLU(ch, groups, eps)
         self.conv_out = nn.Conv2d(ch, spec.out_channels, 3, padding=1)
 
+    def _call(self, module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        """module(*args); in `members_forward`, one vmapped call for every
+        member."""
+        return (self._members or _plain_call)(module, *args)
+
     def _run(self, block: nn.Module, *args: torch.Tensor) -> torch.Tensor:
         """block(*args), recomputed in the backward under remat (what the
         remat policy saves excepted)."""
+        # Bound now: the backward's recompute runs after the forward returned.
+        call = functools.partial(self._members or _plain_call, block)
         if self.remat and torch.is_grad_enabled():
             if self._remat_context is None:
-                return checkpoint(block, *args, use_reentrant=False)
-            return checkpoint(block, *args, use_reentrant=False,
+                return checkpoint(call, *args, use_reentrant=False)
+            return checkpoint(call, *args, use_reentrant=False,
                               context_fn=self._remat_context)
-        return block(*args)
+        return call(*args)
 
     def _attend(self, attention: nn.Module, h: torch.Tensor,
                 context: Optional[torch.Tensor]) -> torch.Tensor:
@@ -202,19 +220,19 @@ class UNet2D(nn.Module):
     def _forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                  context: Optional[torch.Tensor]) -> torch.Tensor:
         spec = self.spec
-        run, attend = self._run, self._attend
+        call, run, attend = self._call, self._run, self._attend
         dtype = self.conv_in.weight.dtype
         if context is not None:
             context = context.to(dtype)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(x.shape[0])
         temb = sinusoidal_embedding(
-            timesteps, spec.block_out_channels[0],
+            timesteps.reshape(-1), spec.block_out_channels[0],
             flip_sin_to_cos=spec.flip_sin_to_cos, freq_shift=spec.freq_shift,
-        )
-        temb = self.time_embedding(temb.to(dtype))
+        ).reshape(timesteps.shape + (-1,))
+        temb = call(self.time_embedding, temb.to(dtype))
 
-        h = self.conv_in(x.to(dtype))
+        h = call(self.conv_in, x.to(dtype))
         skips = [h]
         for block in self.down_blocks:
             for j, res in enumerate(block.resnets):
@@ -223,7 +241,7 @@ class UNet2D(nn.Module):
                     h = attend(block.attentions[j], h, context)
                 skips.append(h)
             if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
+                h = call(block.downsamplers[0], h)
                 skips.append(h)
 
         h = run(self.mid_block.resnets[0], h, temb)
@@ -233,13 +251,45 @@ class UNet2D(nn.Module):
 
         for block in self.up_blocks:
             for j, res in enumerate(block.resnets):
-                h = run(res, torch.cat([h, skips.pop()], dim=1), temb)
+                h = run(res, torch.cat([h, skips.pop()], dim=-3), temb)
                 if len(block.attentions):
                     h = attend(block.attentions[j], h, context)
             if hasattr(block, "upsamplers"):
-                h = block.upsamplers[0](h)
+                h = call(block.upsamplers[0], h)
 
-        return self.conv_out(self.conv_norm_out(h)).float()
+        return call(self.conv_out, call(self.conv_norm_out, h)).float()
+
+
+def _plain_call(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    return module(*args)
+
+
+def members_forward(model: UNet2D, weights: Mapping[str, torch.Tensor], x: torch.Tensor,
+                    timesteps: torch.Tensor,
+                    encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward of M members of `model`'s architecture in one pass.
+
+    `weights` maps parameter and buffer names (the state dict's) to tensors
+    with a leading member axis; a tensor of `model` not named there is the
+    same for every member (the frozen base under stacked LoRA side
+    branches). x is (M, B, C, H, W), timesteps (M, B), the context (M, B,
+    S, D); returns (M, B, C_out, H, W) in float32."""
+    names = {module: name for name, module in model.named_modules()}
+    subsets: Dict[nn.Module, Dict[str, torch.Tensor]] = {}
+
+    def call(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        if module not in subsets:
+            prefix = names[module] + "."
+            subsets[module] = {k[len(prefix):]: v for k, v in weights.items()
+                               if k.startswith(prefix)}
+        return torch.func.vmap(lambda w, *a: functional_call(module, w, a))(
+            subsets[module], *args)
+
+    model._members = call
+    try:
+        return model(x, timesteps, encoder_hidden_states)
+    finally:
+        model._members = None
 
 
 def build_unet(spec: UNetSpec, seed: int, remat: bool = False,

@@ -1,13 +1,16 @@
 """The ensemble axis: one model per removal subset, trained side by side.
 
-Port of the JAX package's ``parallel/ensemble.py`` without a mesh. The JAX
-trainer stacks the members' states and vmaps one compiled step over them;
-here the members are stepped one after another, each a U-Net with its own
-optimizer state, and the loop keeps every per-member property plainly true.
-Members in the batch are possible: the kernels' autograd Functions have
-vmap rules that take a gamma/beta per member, so `torch.func.vmap` over
-`stack_module_state` runs one launch a layer for every member. Training
-that way, or capturing the step in a CUDA graph, is later work.
+Port of the JAX package's ``parallel/ensemble.py`` without a mesh. As there,
+the members' states are stacked on a leading axis (`training.state.
+EnsembleState`) and one step covers all of them
+(`training.train.make_members_step`, the counterpart of the JAX
+``local_step``): one forward and backward in which each kernel launches once
+for every member (the kernels' autograd Functions take a gamma/beta per
+member under vmap), then one optimizer and EMA update of the stack.
+`run_scanned` is ``lax.scan`` as a Python loop over chunks of steps that
+reads nothing back to the host inside a chunk; it gives exactly `run`'s
+states. `--chunk_size` of the pipeline bounds how many members share a
+launch; a mesh over several cards is later work.
 
 Data path: the whole training set stays on the device (NCHW): pixels as
 uint8, or, for latent workloads, the VQ-VAE's float32 latents as the JAX
@@ -21,14 +24,14 @@ the raw slots, the timesteps and the noise that every member shares, and
 every member starts from the same initial weights: members then differ only
 through their subsets, and identical subsets give bit-identical members.
 Otherwise each member draws from its own generator, seeded from (step seed,
-member), and gets its own initial weights. The streams differ from the JAX
-package's threefry streams; what matches is their structure.
+1 + member), and gets its own initial weights. The streams differ from the
+JAX package's threefry streams; what matches is their structure.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +39,8 @@ from torch import nn
 
 from ..config.registry import SchedulerSpec
 from ..diffusion.schedulers import ScheduleState, antithetic_timesteps
-from ..training.state import Optimizer, TrainState
-from ..training.train import make_train_step
+from ..training.state import EnsembleState, Optimizer, init_ensemble_state
+from ..training.train import make_members_step
 
 _RAW_SLOT_BOUND = 1 << 62  # raw draws, reduced modulo each member's size
 
@@ -102,31 +105,32 @@ class EnsembleTrainer:
     def __post_init__(self):
         table, sizes = pad_member_indices(self.member_indices)
         self.num_members = len(self.member_indices)
-        self._sizes = [int(s) for s in sizes]
+        self._sizes = torch.from_numpy(sizes).long().to(self.device)[:, None]
         self._table = torch.from_numpy(table).long().to(self.device)
         if self.images_u8.dtype not in (np.uint8, np.float32):
             raise ValueError(f"images must be uint8 or float32, got {self.images_u8.dtype}")
         self._images = torch.from_numpy(
             np.ascontiguousarray(self.images_u8.transpose(0, 3, 1, 2))
         ).to(self.device)
-        self._member_step = make_train_step(self.tx, self.schedule, self.spec)
+        self._members_step = make_members_step(self.tx, self.schedule)
 
     def init_state(
         self, init_fn: Callable[[int], nn.Module],
         params: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
-    ) -> List[TrainState]:
-        """One TrainState per member. `init_fn(seed)` builds a module with its
-        initial weights drawn from `seed`: one shared seed under common noise,
-        one derived seed per member otherwise. `params` (a state dict), when
-        given, is loaded into every member instead (sparse fine-tuning from one
-        model)."""
-        states = []
-        for m in range(self.num_members):
-            model = init_fn(seed if self.common_noise else derived_seed(seed, m))
-            if params is not None:
-                model.load_state_dict(params)
-            states.append(TrainState.create(model.to(self.device), self.tx))
-        return states
+    ) -> EnsembleState:
+        """The stacked state. `init_fn(seed)` builds a module with its
+        initial weights drawn from `seed`: one shared seed under common
+        noise, one derived seed per member otherwise. `params` (a state
+        dict), when given, is loaded into every member instead (sparse
+        fine-tuning from one model)."""
+        if params is not None:
+            model = init_fn(seed)
+            model.load_state_dict(params)
+            return init_ensemble_state(model.to(self.device), self.tx, self.num_members)
+        seeds = [seed if self.common_noise else derived_seed(seed, m)
+                 for m in range(self.num_members)]
+        return init_ensemble_state(None, self.tx, self.num_members, init_seeds=seeds,
+                                   init_fn=lambda s: init_fn(s).to(self.device))
 
     def _generator(self, *entropy: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(derived_seed(*entropy))
@@ -140,33 +144,59 @@ class EnsembleTrainer:
         noise = torch.randn(shape, generator=gen, device=dev)
         return raw, t, noise
 
-    def batch(self, member: int, raw: torch.Tensor) -> torch.Tensor:
-        """The member's data at slots raw % size, as float32 NCHW: uint8
-        pixels mapped to [-1, 1], float32 latents as they are."""
-        idx = self._table[member].index_select(0, raw % self._sizes[member])
-        batch = self._images.index_select(0, idx)
+    def draws(self, step_seed: int):
+        """(raw slots (M, bs), timesteps (M, bs), noise (M, bs, C, H, W)) of
+        one ensemble step: member m's from the generator of (step seed,
+        1 + m), or, under common noise, one draw that every member shares."""
+        m = self.num_members
+        if self.common_noise:
+            return tuple(x.expand((m,) + x.shape)
+                         for x in self._draws(self._generator(step_seed)))
+        per_member = [self._draws(self._generator(step_seed, 1 + i)) for i in range(m)]
+        return tuple(torch.stack(xs) for xs in zip(*per_member))
+
+    def batch(self, raw: torch.Tensor) -> torch.Tensor:
+        """The members' data at slots raw % size, raw (M, bs), as float32
+        (M, bs, C, H, W): uint8 pixels mapped to [-1, 1], float32 latents as
+        they are."""
+        batch = self._images[torch.gather(self._table, 1, raw % self._sizes)]
         return batch.float() / 127.5 - 1.0 if batch.dtype == torch.uint8 else batch
 
-    def step(self, states: List[TrainState], step_seed: int) -> torch.Tensor:
-        """One step of every member; returns the (M,) losses on the device."""
-        shared = self._draws(self._generator(step_seed)) if self.common_noise else None
-        losses = []
-        for m, state in enumerate(states):
-            raw, t, noise = shared or self._draws(self._generator(step_seed, 1 + m))
-            metrics = self._member_step(state, self.batch(m, raw), timesteps=t, noise=noise)
-            losses.append(metrics["loss"])
-        return torch.stack(losses)
+    def step(self, state: EnsembleState, step_seed: int) -> Dict[str, torch.Tensor]:
+        """One step of every member, in place; returns {"loss", "grad_norm"},
+        each (M,) on the device."""
+        raw, t, noise = self.draws(step_seed)
+        return self._members_step(state, self.batch(raw), t, noise)
 
-    def run(self, states: List[TrainState], num_steps: int, seed: int = 0,
+    def run(self, state: EnsembleState, num_steps: int, seed: int = 0,
             log_every: int = 0, log_fn: Optional[Callable] = None):
-        """Drive num_steps ensemble steps; returns (states, last metrics).
+        """Drive num_steps ensemble steps; returns (state, last metrics).
 
         `log_fn(metrics, step)` fires every `log_every` steps (0 = never);
         metrics values are (M,) device tensors. Nothing else waits for the
         device."""
         metrics: Optional[Dict[str, torch.Tensor]] = None
         for i in range(num_steps):
-            metrics = {"loss": self.step(states, _step_seed(seed, i))}
+            metrics = self.step(state, _step_seed(seed, i))
             if log_fn is not None and log_every and (i + 1) % log_every == 0:
                 log_fn(metrics, i + 1)
-        return states, metrics
+        return state, metrics
+
+    def run_scanned(self, state: EnsembleState, num_steps: int, seed: int = 0,
+                    chunk: int = 0, chunk_fn: Optional[Callable] = None):
+        """Like run(), in chunks of `chunk` steps (default: the whole run), the
+        counterpart of the JAX trainer's ``lax.scan`` chunks: nothing inside a
+        chunk reads back to the host. The per-step seeds are run()'s, so
+        run_scanned(s, n) and run(s, n) give identical states. Returns
+        (state, metrics) with a leading (num_steps,) axis, (n, M) each;
+        `chunk_fn(metrics, end)` sees each chunk's (n_chunk, M) metrics after
+        step `end`."""
+        chunk = min(chunk or num_steps, num_steps)
+        chunks = []
+        for start in range(0, num_steps, chunk):
+            end = min(start + chunk, num_steps)
+            steps = [self.step(state, _step_seed(seed, i)) for i in range(start, end)]
+            chunks.append({k: torch.stack([m[k] for m in steps]) for k in steps[0]})
+            if chunk_fn is not None:
+                chunk_fn(chunks[-1], end)
+        return state, {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}

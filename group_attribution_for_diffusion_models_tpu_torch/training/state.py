@@ -3,6 +3,11 @@
 Port of the JAX package's ``training/state.py``. There the whole state is
 one pytree; here `TrainState` holds the U-Net module (its parameters are
 trained in place), the EMA shadow and the optimizer state of one model.
+`EnsembleState` is the JAX package's stacked TrainState (its
+``parallel/ensemble.py``): M members' parameters, EMA shadows and Adam
+moments with a leading member axis, built by `stack_states` or
+`init_ensemble_state` and taken apart by `unstack_state`. The optimizer
+updates it in one pass; its clip takes each member's own global norm.
 
 `make_optimizer` builds the chain the JAX package builds with optax: global-
 norm clip, an optional sign flip (``maximize``, gradient-ascent unlearning),
@@ -23,9 +28,10 @@ power have no effect.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -127,16 +133,27 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: OptState,
-               params: List[torch.Tensor]) -> Optional[torch.Tensor]:
+               params: List[torch.Tensor], members: int = 0) -> Optional[torch.Tensor]:
         """One step. Overwrites `grads` with the clipped gradients and returns
-        their global norm before the clip (None when nothing is clipped)."""
+        their global norm before the clip (None when nothing is clipped).
+
+        With `members` > 0 every tensor carries a leading member axis of that
+        size (an `EnsembleState`), as under ``jax.vmap`` of the optax chain:
+        each member is clipped by its own global norm, an (M,) vector that
+        is returned. The schedule and the bias corrections stay shared host
+        values: every member steps together."""
         norm = None
         if self.grad_clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = global_norm(grads, members)
             clip = norm >= self.grad_clip_norm  # optax: select(norm < max, g, g / norm * max)
             one = torch.ones_like(norm)
-            torch._foreach_div_(grads, torch.where(clip, norm, one))
-            torch._foreach_mul_(grads, torch.where(clip, one * self.grad_clip_norm, one))
+            div = torch.where(clip, norm, one)
+            mul = torch.where(clip, one * self.grad_clip_norm, one)
+            if members:  # each member's factor, broadcast over its slice of every tensor
+                div, mul = ([x.view((members,) + (1,) * (g.ndim - 1)) for g in grads]
+                            for x in (div, mul))
+            torch._foreach_div_(grads, div)
+            torch._foreach_mul_(grads, mul)
         if self.maximize:
             torch._foreach_neg_(grads)
         torch._foreach_mul_(state.mu, ADAM_B1)
@@ -157,6 +174,16 @@ class Optimizer:
         torch._foreach_mul_(update, float(-_F32(lr)))
         torch._foreach_add_(params, update)
         return norm
+
+
+def global_norm(tensors: List[torch.Tensor], members: int = 0) -> torch.Tensor:
+    """The global L2 norm of `tensors` (0-d); with `members` > 0, of each
+    member's slices along the leading axis ((M,), not one norm of the
+    stack)."""
+    if not members:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(t.flatten(1), dim=1) for t in tensors]), dim=0)
 
 
 def make_optimizer(
@@ -210,3 +237,84 @@ class TrainState:
             n: p.detach() for n, p in self.model.named_parameters()
         }
         return params, dict(zip(names, self.ema))
+
+
+@dataclasses.dataclass
+class EnsembleState:
+    """M members' training state on a leading member axis: parameters and
+    buffers by state-dict name (the parameters are the leaves the step
+    differentiates and updates in place), the EMA shadows and the optimizer
+    state in parameter order, and one count and step for all of them, as in
+    the JAX package's stacked TrainState. `model` gives the architecture
+    only (`models.unet2d.members_forward`); its own tensors are on the meta
+    device."""
+
+    model: nn.Module
+    params: Dict[str, torch.Tensor]
+    buffers: Dict[str, torch.Tensor]
+    ema: List[torch.Tensor]
+    opt_state: OptState
+    step: int = 0
+
+    @property
+    def num_members(self) -> int:
+        return next(iter(self.params.values())).shape[0]
+
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """Parameters and buffers, the mapping `members_forward` takes."""
+        return {**self.params, **self.buffers}
+
+
+def stack_states(states: Sequence[TrainState]) -> EnsembleState:
+    """Stack per-member TrainStates of one architecture along a new leading
+    member axis (copies; the states are left as they were)."""
+    first = states[0]
+    if any((s.step, s.opt_state.count) != (first.step, first.opt_state.count) for s in states):
+        raise ValueError("stacked members must share their step and optimizer count")
+    params, buffers = torch.func.stack_module_state([s.model for s in states])
+    params = {n: p.requires_grad_(True) for n, p in params.items()}
+
+    def stack(lists):
+        return [torch.stack(xs) for xs in zip(*lists)]
+
+    return EnsembleState(
+        model=copy.deepcopy(first.model).to("meta"), params=params, buffers=buffers,
+        ema=stack([s.ema for s in states]),
+        opt_state=OptState(count=first.opt_state.count,
+                           mu=stack([s.opt_state.mu for s in states]),
+                           nu=stack([s.opt_state.nu for s in states])),
+        step=first.step)
+
+
+@torch.no_grad()
+def unstack_state(stacked: EnsembleState, member: int) -> TrainState:
+    """Member `member`'s TrainState, a module of its own (copies)."""
+    weights = stacked.weights()
+    device = next(iter(weights.values())).device
+    model = copy.deepcopy(stacked.model).to_empty(device=device)
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        t.copy_(weights[name][member])
+    opt = stacked.opt_state
+    return TrainState(
+        model=model, ema=[e[member].clone() for e in stacked.ema],
+        opt_state=OptState(count=opt.count, mu=[x[member].clone() for x in opt.mu],
+                           nu=[x[member].clone() for x in opt.nu]),
+        step=stacked.step)
+
+
+def init_ensemble_state(params: Optional[nn.Module], tx: Optimizer, num_members: int,
+                        init_seeds: Optional[Sequence[int]] = None,
+                        init_fn: Optional[Callable[[int], nn.Module]] = None) -> EnsembleState:
+    """Stacked state of `num_members` members: with `init_fn`, member m's
+    module is `init_fn(init_seeds[m])` (independent retrains; a seed given
+    twice is built once); else every member starts from a copy of the one
+    module `params` (sparse fine-tuning from one pruned model)."""
+    if init_fn is not None:
+        if not init_seeds:
+            raise ValueError("init_fn requires init_seeds")
+        built: Dict[int, TrainState] = {}
+        for s in init_seeds:
+            if s not in built:
+                built[s] = TrainState.create(init_fn(s), tx)
+        return stack_states([built[s] for s in init_seeds])
+    return stack_states([TrainState.create(params, tx)] * num_members)

@@ -60,6 +60,36 @@ def group(name: str) -> str:
     return "other"
 
 
+def device_activity(prof) -> dict:
+    """The kernels, copies and fills of a torch.profiler trace, from the
+    trace's own intervals: "busy_ms", the union of their intervals (the time
+    the device was busy); "summed_ms", the sum of their durations, which
+    exceeds the union where streams overlap; "streams", ms by stream;
+    "by_kernel", name -> [ms, launches] (also read by
+    profile_torch_training.py and chip_smoke.py)."""
+    import json
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"), e["name"])
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end, streams, by_kernel = 0.0, float("-inf"), {}, {}
+    for start, stop, stream, name in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+        streams[stream] = streams.get(stream, 0.0) + (stop - start) / 1e3
+        entry = by_kernel.setdefault(name, [0.0, 0])
+        entry[0] += (stop - start) / 1e3
+        entry[1] += 1
+    return {"busy_ms": busy / 1e3, "summed_ms": sum(streams.values()), "streams": streams,
+            "by_kernel": by_kernel}
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile

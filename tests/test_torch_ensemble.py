@@ -28,7 +28,10 @@ from group_attribution_for_diffusion_models_tpu_torch.data import datasets, remo
 from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_schedule
 from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
 from group_attribution_for_diffusion_models_tpu_torch.parallel import ensemble
-from group_attribution_for_diffusion_models_tpu_torch.training import make_optimizer
+from group_attribution_for_diffusion_models_tpu_torch.training import (
+    make_optimizer,
+    unstack_state,
+)
 from group_attribution_for_diffusion_models_tpu_torch.utils import jsonl, trackers
 from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import (
     get_max_steps,
@@ -163,8 +166,9 @@ def test_common_noise_identical_subsets_identical_members():
     assert not np.array_equal(subset, other)
     spec = config_for("synthetic_32x8").unet
     trainer = _trainer([subset, subset, other], common_noise=True)
-    states = trainer.init_state(lambda seed: build_unet(spec, seed), seed=3)
-    states, metrics = trainer.run(states, 3, seed=5)
+    stacked = trainer.init_state(lambda seed: build_unet(spec, seed), seed=3)
+    stacked, metrics = trainer.run(stacked, 3, seed=5)
+    states = [unstack_state(stacked, m) for m in range(3)]
     p0, p1, p2 = (_flat(s) for s in states)
     assert torch.equal(p0, p1)
     assert not torch.equal(p0, p2)
@@ -176,14 +180,16 @@ def test_independent_noise_members_differ_and_batches_stay_in_subset():
     subset = np.array([2, 5, 11])
     spec = config_for("synthetic_32x8").unet
     trainer = _trainer([subset, subset], common_noise=False)
-    states = trainer.init_state(lambda seed: build_unet(spec, seed), seed=3)
+    stacked = trainer.init_state(lambda seed: build_unet(spec, seed), seed=3)
+    states = [unstack_state(stacked, m) for m in range(2)]
     assert not torch.equal(_flat(states[0]), _flat(states[1]))  # own init each
     raw = torch.arange(0, 1000, 7)
-    batch = trainer.batch(0, raw)
+    batch = trainer.batch(torch.stack([raw, raw + 1]))
+    assert batch.shape == (2, len(raw), 3, 8, 8)
     allowed = torch.from_numpy(trainer.images_u8[subset]).permute(0, 3, 1, 2).float() / 127.5 - 1
-    assert all(any(torch.equal(b, a) for a in allowed) for b in batch)
-    states, _ = trainer.run(states, 2, seed=0)
-    assert all(s.step == 2 for s in states)
+    assert all(any(torch.equal(b, a) for a in allowed) for b in batch.flatten(0, 1))
+    stacked, _ = trainer.run(stacked, 2, seed=0)
+    assert stacked.step == 2 and stacked.opt_state.count == 2
 
 
 def _run_port(outdir, *extra):

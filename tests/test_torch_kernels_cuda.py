@@ -524,9 +524,10 @@ def test_train_ensemble_on_card_goes_through_the_kernels(cuda, tmp_path):
         "--dataset", "synthetic_32x8_big", "--removal_dist", "shapley", "--num_seeds", "2",
         "--training_steps", "3", "--outdir", str(tmp_path), "--eval_loss"])
     assert np.isfinite(summary["losses"]).all() and np.isfinite(summary["eval_losses"]).all()
-    # _big, per forward: 6 attention layers and 31 GroupNorms; 2 members x 3
-    # steps forward and backward, then one eval forward per member.
-    fwd, bwd = 2 * 3 + 2, 2 * 3
+    # _big, per forward: 6 attention layers and 31 GroupNorms; the 2 members
+    # stacked, so 3 steps of one forward and backward for both, then one eval
+    # forward per member.
+    fwd, bwd = 3 + 2, 3
     assert (attention_kernel.launches, attention_bwd_dq.launches, attention_bwd_dkv.launches,
             group_norm_kernel.launches, group_norm_bwd_kernel.launches) == (
         6 * fwd, 6 * bwd, 6 * bwd, 31 * fwd, 31 * bwd)

@@ -323,7 +323,7 @@ def test_latent_train_step_with_injected_batch_indices_matches_jax():
         spec=SchedulerSpec(), images_u8=latents, member_indices=[subset], batch_size=4,
         device=torch.device("cpu"))
     raw = torch.tensor([0, 5, 2, 7])
-    batch = trainer.batch(0, raw)
+    batch = trainer.batch(raw[None])[0]
     assert torch.equal(batch, _nchw(latents[subset[[0, 1, 2, 3]]]))
     t = rng.integers(0, 1000, 4).astype(np.int32)
     noise = rng.standard_normal((4, 4, 4, 3)).astype(np.float32)

@@ -308,7 +308,6 @@ def test_latent_path_on_a_tiny_vq_config(tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["--dataset", "synthetic_64x8_cond"], "ImagenetteCaptioner.*item 9.*LDMBert.*item 8"),
     (["--dataset", DATASET, "--profile_dir", "/tmp/p"], "item 9"),
-    (["--dataset", DATASET, "--scan_chunk", "4"], "item 6"),
 ])
 def test_unported_paths_exit_with_their_item(tmp_path, extra, item):
     with pytest.raises(SystemExit, match=item):

@@ -67,6 +67,8 @@ from group_attribution_for_diffusion_models_tpu_torch.models.convert_diffusers i
 from group_attribution_for_diffusion_models_tpu_torch.models.lora import (
     load_lora_npz,
     lora_ranks,
+    stack_lora_trees,
+    unstack_lora_tree,
 )
 from group_attribution_for_diffusion_models_tpu_torch.training.state import make_optimizer
 from group_attribution_for_diffusion_models_tpu_torch.utils import jsonl
@@ -107,11 +109,13 @@ def _port_step_args(data, device="cpu"):
             _nchw(data["noise"]))
 
 
-def _port_run(params, lora_np, data, steps, microbatch=0):
-    """(losses, LoRA tree after `steps` port member steps, the first
-    moment after the first step, i.e. 0.1 x its clipped gradient), JAX names."""
+def _port_members(params, lora_nps, draws, steps, microbatch=0):
+    """(losses (steps, M), stacked LoRA tree after the first step, the stacked
+    first moment after it, i.e. 0.1 x the clipped gradients) of `steps`
+    port `members_step`s of the members `lora_nps` (JAX trees) on injected
+    draws, one (idx, t, noise) of numpy arrays a member."""
     model = _port_unet(params).requires_grad_(False)
-    tree = lora_tree_from_jax(lora_np)
+    tree = stack_lora_trees([lora_tree_from_jax(lo) for lo in lora_nps])
     leaves = train_text_to_image_lora.lora_leaves(tree)
     for leaf in leaves:
         leaf.requires_grad_(True)
@@ -120,12 +124,13 @@ def _port_run(params, lora_np, data, steps, microbatch=0):
     state = tx.init(leaves)
     schedule = make_schedule(SchedulerSpec())
     snr = schedule.alphas_cumprod / (1.0 - schedule.alphas_cumprod)
-    latents, emb, img_artist, idx, t, noise = _port_step_args(data)
+    latents, emb, img_artist = _port_step_args(draws[0])[:3]
+    idx, t, noise = (torch.stack(x) for x in zip(*(_port_step_args(d)[3:] for d in draws)))
     losses, first = [], None
     for _ in range(steps):
-        losses.append(float(train_text_to_image_lora.member_step(
+        losses.append(train_text_to_image_lora.members_step(
             model, tree, tx, state, latents, emb, img_artist, idx, t, noise, schedule, snr,
-            GAMMA, microbatch)))
+            GAMMA, microbatch).tolist())
         if first is None:
             first = ({n: {k: v.detach().clone() for k, v in ab.items()} for n, ab in tree.items()},
                      [m.clone() for m in state.mu])
@@ -134,7 +139,16 @@ def _port_run(params, lora_np, data, steps, microbatch=0):
     moments = {}
     for (n, k), m in zip(names, mu):
         moments.setdefault(n, {})[k] = m
-    return losses, lora_tree_to_jax(after), lora_tree_to_jax(moments)
+    return np.asarray(losses), after, moments
+
+
+def _port_run(params, lora_np, data, steps, microbatch=0):
+    """(losses, LoRA tree after `steps` port member steps, the first
+    moment after the first step, i.e. 0.1 x its clipped gradient), JAX names:
+    one member, stacked alone."""
+    losses, after, moments = _port_members(params, [lora_np], [data], steps, microbatch)
+    return (losses[:, 0].tolist(), lora_tree_to_jax(unstack_lora_tree(after, 0)),
+            lora_tree_to_jax(unstack_lora_tree(moments, 0)))
 
 
 def _assert_first_adam_step_close(got, want, grads):
@@ -201,6 +215,31 @@ def test_microbatch_accumulation_matches_the_whole_batch(case):
     np.testing.assert_allclose(micro_losses, whole_losses, rtol=1e-6)
     _assert_grads_close(micro_mu, whole_mu)
     _assert_first_adam_step_close(micro, whole, whole_mu)
+
+
+def test_stacked_members_match_each_member_alone(case):
+    """Two LoRA members stacked in one `members_step` (the frozen base shared,
+    a tree, an optimizer state and draws each; one member's factors 10x the
+    other's, its gradient norm about 200x, so that only it is clipped)
+    against each member
+    stepped alone, the trainer's loop before it stacked them: losses within
+    1e-6 relative, first moments within 1e-4 of each leaf's largest entry,
+    the leaves after two steps within 1e-6 (float noise of a gradient in that
+    band around 0 may move Adam's step up to 2 lr, which such elements are
+    held to)."""
+    params, lora_np, data = case
+    other = dict(data, idx=np.array([1, 2, 9, 9]), t=np.array([40, 3, 870, 501]),
+                 noise=np.random.default_rng(22).standard_normal((4, 8, 8, 4)).astype(np.float32))
+    loud = jax.tree_util.tree_map(lambda a: np.asarray(a) * 10, _lora_tree(params, 23))
+    stacked = _port_members(params, [lora_np, loud], [data, other], 2)
+    for m, (lo, d) in enumerate(((lora_np, data), (loud, other))):
+        alone = _port_members(params, [lo], [d], 2)
+        np.testing.assert_allclose(stacked[0][:, m], alone[0][:, 0], rtol=1e-6)
+        got_mu = lora_tree_to_jax(unstack_lora_tree(stacked[2], m))
+        want_mu = lora_tree_to_jax(unstack_lora_tree(alone[2], 0))
+        _assert_grads_close(got_mu, want_mu)
+        _assert_first_adam_step_close(lora_tree_to_jax(unstack_lora_tree(stacked[1], m)),
+                                      lora_tree_to_jax(unstack_lora_tree(alone[1], 0)), want_mu)
 
 
 def test_sample_loop_with_a_text_context_matches_jax(case):
