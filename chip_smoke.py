@@ -34,13 +34,13 @@ Phases (one line each; any failure raises and exits non-zero):
    CPU from the same weights, images, timesteps and noise (batch 8, float32,
    TF32 off): loss, gradient norm and gradients; and two card runs of the
    step agree bit for bit.
-   ensemble: the stacked ensemble at full width. 8 CIFAR members at batch
+   ensemble: the stacked ensemble at full width. 4 CIFAR members at batch
    64, each with a seeded gamma/beta of its own in every GroupNorm: one
    stacked step (`training.train.make_members_step`: one vmapped forward and
-   backward, one launch a kernel site for every member) against the same 8
+   backward, one launch a kernel site for every member) against the same 4
    member-steps one at a time from the same states and draws (losses,
    clipped gradients, weights), seconds a step, peaks and the convolutions'
-   device time of both; ``run_scanned(6, chunk=3)`` against ``run(6)`` bit
+   device time of both; ``run_scanned(4, chunk=3)`` against ``run(4)`` bit
    for bit under common noise, where two members on one subset end
    bit-identical. 2 miniSD LoRA members at batch 64 in one
    `train_text_to_image_lora.members_step` against each member alone, the
@@ -48,25 +48,25 @@ Phases (one line each; any failure raises and exits non-zero):
    per-step loop.
 5. main path, sampling: a seeded random-init full-width CIFAR checkpoint
    sampled through ``cli.generate_samples.main`` (2 batches of 64 images x
-   100 DDIM steps; the second batch's time is the warm one).
+   50 DDIM steps; the second batch's time is the warm one).
 6. reference: 5 DDIM steps of the same model on the card against the CPU
    from the same initial noise.
 7. main path, training: ``cli.train_ensemble.main`` on a seeded stand-in for
    the CIFAR-10 training set (50,000 uint8 images in the
    ``cifar-10-batches-py`` layout), full-width CIFAR, 8 shapley members at
    batch 64, stacked (one launch a kernel site a step for all of them), with
-   eval loss and 16 DDIM samples each: 2 steps to warm up, then 6 steps
-   timed.
+   eval loss and 16 DDIM samples each: 4 steps timed, the first one's
+   set-up among them (no warm-up call).
 8. trak-step: the full-width CIFAR per-sample gradients (batch 2, one
    timestep, injected noise) through the vmap rules on the card against the
    CPU, and against a per-example autograd loop on the card.
 9. main path, TRAK: ``cli.grad_features.main`` on the full-width CIFAR
-   checkpoint and the stand-in (train source, 2 batches of 32 x 10
+   checkpoint and the stand-in (train source, 2 batches of 32 x 4
    timesteps, projected to 4096; generated samples; the probe and
    attention-only modes; Journey TRAK), then ``cli.traks.main`` on the
    store.
 10. main path, the estimation loop: ``cli.shapley_pipeline.main`` on the
-    stand-in at full width (by class, 6 shapley fit and 6 datamodel test
+    stand-in at full width (by class, 3 shapley fit and 3 datamodel test
     subsets, 3 steps, at the default ``--chunk_size`` and batch, with the
     peak, eval-loss behavior, two anchors: arm A, retrain), ``cli.prune.main``
     (Taylor importance, 10 timesteps, ratio 0.5) on arm A's full anchor, then
@@ -75,22 +75,20 @@ Phases (one line each; any failure raises and exits non-zero):
     (arm B, sparse fine-tuning, its test rows reused). Launch counts per
     arm, attributions of shape (10,), the efficiency constraint, the fit
     game's anchors and a shared y_test are asserted.
-11. scores: the full FID InceptionV3 (seeded random init) on 8 seeded 32x32
+11. scores: the full FID InceptionV3 (seeded random init) on 2 seeded 32x32
     images resized to 299, card against CPU (f32, TF32 off), then timed at
     batch 256 (event and device time, images/s, peak memory) beside its
     bound from the layer shapes; the same for VGG16Features at 224. Then
     the main path of the sample behaviors: ``cli.shapley_pipeline.main
-    --behavior fid_value`` at full width on the stand-in (by class, 2
-    shapley fit and 2 datamodel test subsets, the fewest its fit stage takes,
-    10 steps at batch 64, the two anchors, 256 DDIM samples of 10 steps a
-    member scored in the loop: 6 FIDs, each a 2048-d host sqrtm), its
-    seconds split into training, sampling, tower and FID math, launches,
-    every member's FID and the efficiency constraint asserted; then
-    ``cli.calculate_global_scores.main`` on the full anchor's checkpoint
-    (the same 256 samples: FID and IS equal to the anchor's row; precision
-    and recall on VGG16 features). scipy's sqrtm is memoised by its input's
-    bytes for the phase, so the global check takes the anchor's root when its
-    features and stats are the anchor's, and roots anew when they are not.
+    --behavior is`` at full width on the stand-in (by class, 2 shapley fit
+    and 2 datamodel test subsets, the fewest its fit stage takes, 3 steps at
+    batch 64, the two anchors, 256 DDIM samples of 5 steps a member scored
+    in the loop by the Inception tower), its seconds split into training,
+    sampling and tower, launches, every member's IS and the efficiency
+    constraint asserted; then ``cli.calculate_global_scores.main`` on the
+    full anchor's checkpoint (the same 256 samples: IS equal to the anchor's
+    row; FID, one 2048-d host sqrtm; precision and recall on VGG16
+    features).
 12. ldm: the latent-diffusion workload at full CelebA width (the 274M U-Net,
     the full VQ-VAE, the full BLIP tower, seeded random inits) on a seeded
     CelebA-HQ stand-in (128 smooth 256x256 PNGs, labels.csv of 8 integer
@@ -101,9 +99,10 @@ Phases (one line each; any failure raises and exits non-zero):
     plain times; the plain f32 route of the VQ's D=512 mid attention timed.
     Then ``cli.train_vqvae.main`` (3 steps at batch 8),
     ``cli.shapley_pipeline.main --dataset celeba --vqvae_weights`` (by
-    celebrity, 3 fit and 2 test subsets, 3 steps at batch 32, the two
-    anchors; one encode of the stand-in, then its cache), ``cli.
-    generate_samples.main`` (16 images x 25 DDIM steps decoded to 256x256
+    celebrity, 3 fit and 2 test subsets, 2 steps at batch 32, the two
+    anchors, only the anchors checkpointed; one encode of the stand-in, then
+    its cache), ``cli.generate_samples.main`` (16 images x 5 DDIM steps
+    decoded to 256x256
     PNGs, all distinct), a card-vs-CPU reference at batch 1 (3 DDIM steps and
     the decode, encode -> quantize of a stand-in image, codes agreeing at
     99% or more), and ``cli.calculate_global_scores_diversity.main`` (32
@@ -123,12 +122,12 @@ Phases (one line each; any failure raises and exits non-zero):
     (batch 64), of a KL encode (batch 64) and decode (batch 8) against their
     plain versions, repeated bit for bit, timed beside their bounds, library
     and plain times; the plain route at the KL mid attention timed. Then
-    ``cli.train_text_to_image_lora.main`` (2 datamodel members stacked x 3
+    ``cli.train_text_to_image_lora.main`` (2 datamodel members stacked x 2
     steps at batch 64, the base frozen: no GroupNorm gamma/beta reduction; the
     latents encoded once and cached with a tag), ``cli.prune_lora.main``
-    (ratio 0.5), a 3-step ``--method pruned_ft`` of the pruned LoRA on 2
+    (ratio 0.5), a 2-step ``--method pruned_ft`` of the pruned LoRA on 2
     shapley subsets (the latents' cache reused),
-    ``cli.generate_samples_tti.main`` (16 images x 25 DDIM steps, and a
+    ``cli.generate_samples_tti.main`` (16 images x 5 DDIM steps, and a
     second call that resumes with nothing to do), each with its launches and
     plain-route calls reckoned from the specs; and a card-vs-CPU reference
     at batch 1 of 3 DDIM steps of the LoRA'd base with a CLIP context, the
@@ -139,20 +138,20 @@ Phases (one line each; any failure raises and exits non-zero):
     sample, against the plain versions and timed. The CLIP ViT-L/14 vision tower
     and the aesthetic head card vs CPU at batch 2, the tower timed at batch
     32 beside its FLOP bound. Then the scoring loop: 4 shapley members and
-    the full anchor trained (3 steps at batch 64; the 4 members stacked in
+    the full anchor trained (2 steps at batch 64; the 4 members stacked in
     slices of 32, ``--microbatch``, to fit the card), a null anchor (the LoRA's
     up factors zeroed); every member's mask as the LDS CLIs redraw it
     against the trainer's kept_units; ``cli.compute_model_behaviors.main``
-    timed once (16 paired samples x 25 DDIM steps, the KL decode, the CLIP
+    timed once (16 paired samples x 5 DDIM steps, the KL decode, the CLIP
     tower, 3 loss draws), then on each of the 8 members and both anchors (2
     samples x 5 steps), and once more, skipped by the duplicate guard;
     ``cli.shapley_lds.main`` with the measured anchors (the efficiency
     constraint on the saved attributions) and ``cli.shapley_convergence.
     main`` (the sparse fine-tunes against the retrained members);
     ``cli.grad_features_tti.main`` (LoRA-only per-sample gradients under a
-    context per sample: the train source on 32 images in batches of 16 x 10
+    context per sample: the train source on 32 images in batches of 16 x 3
     timesteps, timed with its gradients/JL split, then every image at one
-    timestep; generated, 16 samples x 10 steps; generated_journey), the
+    timestep; generated, 16 samples x 4 steps; generated_journey), the
     latents read from the trainer's tagged cache, ``cli.traks.main``;
     ``cli.similarity_baselines.main`` pixel, clip and aesthetic on the
     stand-in and the 16 generated images; ``cli.baseline_lds.main`` over
@@ -160,18 +159,18 @@ Phases (one line each; any failure raises and exits non-zero):
 14. unlearn: the per-subset single-model jobs at full width. A WoodFisher
     k_vec of the full CIFAR U-Net (2 batches of 2, injected draws) card
     against CPU. ``cli.main`` on the CIFAR stand-in: retrain on the full set
-    (20 steps at batch 64), the same command again (it resumes and trains
+    (10 steps at batch 64), the same command again (it resumes and trains
     nothing), retrain and prune_fine_tune (from [pipeline]'s Taylor-pruned
     model) on shapley seeds 0..2 by class, ga from the full model.
     ``cli.unlearn`` from the full model on shapley seed 1: gd, ga and lora
     (rank 16, the base frozen: no GroupNorm gamma/beta reduction, and the
-    merge moves only attention projections) with local behaviors (16 paired
-    samples x 20 DDIM steps), gd with the global ones (64 samples, FID, IS
+    merge moves only attention projections) with local behaviors (8 paired
+    samples x 10 DDIM steps), gd with the global ones (64 samples, FID, IS
     and P&R of the random Inception tower); iu and ``cli.shapley_groundtruth``
-    (7 enumerated subsets x 5 steps, the efficiency constraint on the exact
-    values) on a 1,500-image 3-class CIFAR stand-in; ``cli.attribute``
+    (7 enumerated subsets x 2 steps, the efficiency constraint on the exact
+    values) on a 750-image 3-class CIFAR stand-in; ``cli.attribute``
     shapley and datamodel and ``cli.empirical_verification`` on the rows
-    written; CelebA's ``cli.main`` (3 steps at batch 32) and iu in VQ
+    written; CelebA's ``cli.main`` (2 steps at batch 32) and iu in VQ
     latents on [ldm]'s weights and latents cache. Each call's seconds split
     into training or unlearning, sampling and scoring, iu's into its two
     average gradients and the recursion, peaks and launches.
@@ -184,16 +183,16 @@ Phases (one line each; any failure raises and exits non-zero):
     gamma/beta gradient per sample) under vmap(grad) at batch 8 against the
     plain versions, one launch each, timed beside plain and library times.
     Then ``cli.grad_features.main`` in VQ latents on [ldm]'s full anchor and
-    tagged latents cache at batch 8: the train source (2 batches x 5
-    timesteps -> 4096), generated (8 samples x 20 DDIM steps, raw latents),
-    probe and attn_full (a batch each), generated_journey (5 steps), and
+    tagged latents cache at batch 8: the train source (2 batches x 2
+    timesteps -> 4096), generated (8 samples x 4 DDIM steps, raw latents),
+    probe and attn_full (a batch each), generated_journey (2 steps), and
     ``cli.traks.main`` on the store; ``cli.sketch_quality.main`` on CIFAR
     ([unlearn]'s full model, 64 train and 32 generated images, probes at k
     16 and 64, 2 timesteps, LDS on [pipeline]'s datamodel rows);
     ``cli.calculate_local_scores.main`` and ``cli.calculate_local_loss.main``
     on CIFAR and on CelebA (decoded by the VQ decoder), [unlearn]'s full
-    model against its shapley seed 1 model, 8 samples x 20 DDIM steps on
-    CIFAR and x 10 on CelebA.
+    model against its shapley seed 1 model, 8 samples x 5 DDIM steps on
+    CIFAR and x 2 on CelebA.
 16. data: workload 1's other datasets from seeded stand-ins in their real
     layouts (a 50,000-image ``cifar-100-python`` pickle, 60,000-image MNIST
     idx files, the CIFAR-10 stand-in): ``create_dataset`` of cifar2,
@@ -206,6 +205,23 @@ Phases (one line each; any failure raises and exits non-zero):
     route) and every GroupNorm of its pass against the plain versions, then
     ``cli.main`` retrain on mnist (5 steps at batch 64) and
     ``cli.generate_samples.main`` (16 x 20 DDIM steps, 32x32 gray PNGs).
+17. cond: the prompt-conditional path of ``cli.main``. On the synthetic
+    conditional configs through the CLI: an LDMBert ``.npz`` and a
+    ``vocab.txt`` the phase writes, the per-step loop and ``--scan_chunk``,
+    ``--text_encoder_kind clip --random_text_encoder``, and
+    ``synthetic_64x16_ldm_cond``; each loss finite, each sample grid written.
+    At full width, around ``cli.main``'s dataset loader (its imagenette
+    config gives 256x256 pixels to a U-Net of 4x32x32 latents, ROADMAP C4):
+    the 872M imagenette U-Net conditioned on the 32-layer LDMBert (seeded
+    random, a stand-in vocab of the 10 captions' words) through
+    ``cli.common.class_conditioning``; the tower card vs CPU over its first 4
+    layers and timed; the step ``cli.main`` builds (AdamW) at batch 64 on
+    seeded 4x32x32 latents, labels 0-9, timed, with B1-B4 launches a step
+    against the spec's count and the peak; one step at batch 1 card vs CPU;
+    a conditioned DDIM grid; one step each with adam8bit and adafactor and
+    their peaks. Then ``pipelines.Pipeline.generate_images`` on the CIFAR
+    checkpoint of phase 5: DDIM at eta 0 (bit for bit ``make_sampler``'s from
+    the same initial noise) and eta 1, and DDPM.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -217,7 +233,6 @@ CUDA it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import math
 import os
@@ -249,9 +264,9 @@ SAMPLE_ATOL = 2e-3  # images in [0, 1] after 5 DDIM steps of that forward
 # or a wrong backward kernel is off by O(1).
 TRAIN_STEP_RTOL = 1e-3
 TRAIN_STEP_BATCH = 8
-# 6 steps: the stacked f32 step takes 1.7x the member loop's, and [ensemble]
-# needs the time.
-TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_WARM_STEPS, TRAIN_BATCH = 8, 6, 2, 64
+# 4 steps, with no warm-up call: the first step's set-up is among the 4 timed
+# ([ensemble] ran the stacked step at batch 64 just before, with 4 members).
+TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_BATCH = 8, 4, 64
 # train_ensemble caps the batch at the smallest subset (as the JAX CLI does).
 # Shapley seeds 22..29 keep 65 to 49,999 of the 50,000 images, so the
 # members train at batch 64; seed 7, for one, keeps 3.
@@ -280,8 +295,8 @@ JL_LIBRARY_D = 262_144  # a D where R (D, P) f32 fits for the torch.matmul yards
 # the vmap path vs a per-example loop on the card, the same f32 ops on other
 # batch shapes.
 TRAK_LOOP_RTOL = 1e-4
-TRAK_BATCH, TRAK_EXAMPLES, TRAK_TIMESTEPS, TRAK_PROJ = 32, 64, 10, 4096
-TRAK_SAMPLES, TRAK_SAMPLE_STEPS, TRAK_JOURNEY_SAMPLES = 32, 10, 4
+TRAK_BATCH, TRAK_EXAMPLES, TRAK_TIMESTEPS, TRAK_PROJ = 32, 64, 4, 4096
+TRAK_SAMPLES, TRAK_SAMPLE_STEPS, TRAK_JOURNEY_SAMPLES = 32, 5, 4
 ATTN_SHAPES = [  # (B, Sq, Skv, H, D)
     (64, 256, 256, 1, 256),  # CIFAR down_1 / up_2 at 16x16, sampling batch 64
     (64, 16, 16, 1, 256),    # CIFAR mid block at 4x4
@@ -312,30 +327,30 @@ GN_CENSUS = [
 GN_CENSUS_BATCH = 64
 PRUNE_RATIOS = (0.3, 0.5)  # magnitude pruning of the seeded CIFAR U-Net in [prune-gn]
 # [pipeline]: shapley_pipeline at full width on the stand-in, by class, at its
-# default --chunk_size and CIFAR's default batch (128). 6 fit subsets, 3 and 2
-# steps, for [ensemble]'s time.
-PIPE_FIT, PIPE_TEST, PIPE_STEPS, PIPE_FT_STEPS = 6, 6, 3, 2
-PIPE_TEST_SEED = 42  # datamodel seeds 42..47 keep 5 of the stand-in's 10 classes each
+# default --chunk_size and CIFAR's default batch (128). 3 fit and 3 test subsets
+# (one stacked call each), 3 and 2 steps.
+PIPE_FIT, PIPE_TEST, PIPE_STEPS, PIPE_FT_STEPS = 3, 3, 3, 2
+PIPE_TEST_SEED = 42  # datamodel seeds 42..44 keep 5 of the stand-in's 10 classes each
 PIPE_TAYLOR_STRIDE, PIPE_PRUNE_RATIO = 100, 0.5  # 10 Taylor timesteps: 999, 899, ..., 99
 # Efficiency constraint of the closed form: |sum(attrs) - (v1 - v0)| <= this * max(1, |v1 - v0|).
 EFFICIENCY_RTOL = 1e-6
 # [scores]: the towers card vs CPU, |d| <= TOWER_TOL * max(1, max |CPU|) (about 95 f32
 # layers summed in other orders; tests/test_inception_numeric.py's tolerance).
-TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 8, 256
-# shapley_pipeline --behavior fid_value at full width: shapley seeds 0..1 keep 1-9
-# classes, datamodel seeds 42..43 keep 5; every member scored on its own samples.
-# Each FID is a 2048-d host sqrtm of 13-21 s: two fit and two test subsets (the
-# fewest the fit stage takes) and the two anchors are 6. The global-scores check
-# re-scores the full anchor's samples, the same sqrtm input when the port is right:
-# each distinct input is rooted once (a memo by the matrix's bytes), so the check
-# adds no seventh root unless its features or stats differ.
-SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 10, 64
-SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 10, 42
+TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 2, 256
+# shapley_pipeline --behavior is at full width: shapley seeds 0..1 keep 1-9
+# classes, datamodel seeds 42..43 keep 5; every member scored on its own samples
+# (the Inception tower on the card, IS on the host). Two fit and two test subsets
+# are the fewest the fit stage takes. The behavior is IS, not FID: each FID is a
+# 2048-d host sqrtm of 12-25 s, six of them were a sixth of a run, and the run's
+# time on a slower host is what bounds it; FID is held by calculate_global_scores
+# on the full anchor here and by cli.unlearn's global behaviors.
+SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 3, 64
+SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 5, 42
 # calculate_global_scores --seed SCORE_SEED on the anchor's checkpoint draws the
 # anchor's own samples (train_ensemble's default --opt_seed, which the pipeline
-# keeps; the same batch and EMA weights), so its FID is the anchor row's up to
-# the host's float64 BLAS.
-SCORE_FID_RTOL = 1e-6
+# keeps; the same batch and EMA weights), so its IS is the anchor row's up to
+# the host's float64 arithmetic.
+SCORE_RTOL = 1e-6
 # [ensemble]: the stacked step against the member loop on the card, f32, TF32
 # off: the same f32 ops on other batch shapes (functorch runs a vmapped
 # convolution as a grouped one) through a forward and a backward. Losses and
@@ -343,11 +358,11 @@ SCORE_FID_RTOL = 1e-6
 # ENS_RTOL max |g| over all tensors; per tensor the change of the weights
 # within ENS_MOVE_RTOL of its L2 norm (the CPU tests' rule: Adam turns float
 # noise of a gradient element near zero into a visible share of lr).
-ENS_MEMBERS, ENS_BATCH, ENS_TIMED, ENS_RTOL, ENS_MOVE_RTOL = 8, 64, 2, 1e-4, 1e-2
-ENS_SCAN_STEPS, ENS_SCAN_CHUNK = 6, 3  # run_scanned(6, chunk=3) against run(6)
+ENS_MEMBERS, ENS_BATCH, ENS_TIMED, ENS_RTOL, ENS_MOVE_RTOL = 4, 64, 2, 1e-4, 1e-2
+ENS_SCAN_STEPS, ENS_SCAN_CHUNK = 4, 3  # run_scanned(4, chunk=3) against run(4)
 ENS_TTI_MEMBERS = 2  # miniSD LoRA members stacked, at TTI_BATCH
 ENS_MAIN_STEPS, ENS_MAIN_CHUNK = 10, 5  # cli.main --scan_chunk on CIFAR
-STEPS, BATCH, N_BATCHES = 100, 64, 2
+STEPS, BATCH, N_BATCHES = 50, 64, 2
 # [ldm]: the latent-diffusion workload at full CelebA width (get_config("celeba"):
 # a 274,056,163-parameter U-Net on 64x64x3 latents of the full VQVAESpec) on a
 # CelebA-HQ stand-in of LDM_IMAGES seeded smooth 256x256 PNGs, LDM_IMAGES /
@@ -358,9 +373,9 @@ LDM_VQ_STEPS, LDM_VQ_BATCH = 3, 8  # train_vqvae at the full VQVAESpec
 # shapley_pipeline --dataset celeba by celebrity: shapley seeds 0..2 keep 5, 3 and 3
 # of the 8 groups (48 or more images) and datamodel seeds 42, 43 keep 4, so every
 # member trains at batch 32.
-LDM_FIT, LDM_TEST, LDM_STEPS, LDM_BATCH = 3, 2, 3, 32
-LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 25  # generate_samples, one batch
-LDM_DIV_SAMPLES, LDM_DIV_STEPS, LDM_CLUSTERS = 32, 20, 8  # and 4 x 32 reference images
+LDM_FIT, LDM_TEST, LDM_STEPS, LDM_BATCH = 3, 2, 2, 32
+LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 5  # generate_samples, one batch
+LDM_DIV_SAMPLES, LDM_DIV_STEPS, LDM_CLUSTERS = 32, 5, 8  # and 4 x 32 reference images
 LDM_ATTN_SHAPES = [  # the CelebA U-Net's attention at training batch 32, head dim 32
     (32, 1024, 1024, 14, 32),  # 32x32 latents
     (32, 256, 256, 21, 32),    # 16x16
@@ -381,9 +396,9 @@ LDM_CODE_AGREEMENT, LDM_REF_STEPS = 0.99, 3
 # TTI_ARTISTS x TTI_PER_ARTIST smooth 256x256 PNGs; datamodel seeds 0 and 1
 # (alpha 0.5) keep 8 of the 16 artists, 128 images, so members train at 64.
 TTI_ARTISTS, TTI_PER_ARTIST = 16, 16
-TTI_MEMBERS, TTI_STEPS, TTI_BATCH, TTI_RANK = 2, 3, 64, 256
+TTI_MEMBERS, TTI_STEPS, TTI_BATCH, TTI_RANK = 2, 2, 64, 256
 TTI_ENCODE_BATCH = 64  # precompute_latents' batch
-TTI_SAMPLES, TTI_SAMPLE_STEPS = 16, 25  # generate_samples_tti, one batch
+TTI_SAMPLES, TTI_SAMPLE_STEPS = 16, 5  # generate_samples_tti, one batch
 TTI_PRUNE_RATIO = 0.5
 TTI_ATTN_SHAPES = [  # miniSD's attention at training batch 64, 8 heads: self, then cross
     (64, 1024, 1024, 8, 40), (64, 1024, 77, 8, 40),    # 32x32 latents, width 320
@@ -409,13 +424,13 @@ TTI_SHAPLEY, TTI_FT_MEMBERS = 4, 2
 TTI_SHAPLEY_MICROBATCH = 32
 # compute_model_behaviors: one timed call (reference LoRA against a subset LoRA),
 # then a smaller call for every member and each anchor.
-TTI_SCORE_SAMPLES, TTI_SCORE_STEPS, TTI_SCORE_NOISES = 16, 25, 3
+TTI_SCORE_SAMPLES, TTI_SCORE_STEPS, TTI_SCORE_NOISES = 16, 5, 3
 TTI_MEMBER_SAMPLES, TTI_MEMBER_STEPS, TTI_MEMBER_NOISES = 2, 5, 1
 # grad_features_tti: the train source timed on the first TTI_TRAK_EXAMPLES images
 # (2 artists: the stand-in is in name order), then on every image at one timestep,
 # so that traks' attributions cover the 16 artists for baseline_lds.
-TTI_TRAK_EXAMPLES, TTI_TRAK_BATCH, TTI_TRAK_TIMESTEPS, TTI_TRAK_PROJ = 32, 16, 10, 4096
-TTI_TRAK_SAMPLES, TTI_TRAK_SAMPLE_STEPS = 16, 10
+TTI_TRAK_EXAMPLES, TTI_TRAK_BATCH, TTI_TRAK_TIMESTEPS, TTI_TRAK_PROJ = 32, 16, 3, 4096
+TTI_TRAK_SAMPLES, TTI_TRAK_SAMPLE_STEPS = 16, 4
 # Per-sample LoRA gradients, card vs CPU (2 samples, each with its own context,
 # one timestep): TRAIN_STEP_RTOL of each sample's largest entry. The CLIP vision
 # tower (ViT-L/14, 24 layers of width 1024), card vs CPU at batch 2: TOWER_TOL
@@ -432,13 +447,13 @@ TTI_VMAP_ATTN = [(1024, 8, 40), (256, 8, 80), (64, 8, 160), (16, 8, 160)]
 # ga and lora UNL_UNLEARN_STEPS steps, local behaviors of UNL_LOCAL samples x steps,
 # gd also global (UNL_GLOBAL); iu, and shapley_groundtruth (7 subsets), on a
 # UNL_SMALL_IMAGES-image stand-in of UNL_SMALL_CLASSES classes (cut to size: iu's
-# average gradients run over every image of both sets). CelebA: cli.main 3 steps
+# average gradients run over every image of both sets). CelebA: cli.main 2 steps
 # at batch 32 on shapley seed 1 (3 of 8 celebrities, 48 images), iu on it.
-UNL_SEEDS, UNL_STEPS, UNL_SEED_STEPS, UNL_BATCH = (0, 1, 2), 20, 5, 64
+UNL_SEEDS, UNL_STEPS, UNL_SEED_STEPS, UNL_BATCH = (0, 1, 2), 10, 3, 64
 UNL_UNLEARN_STEPS, UNL_LORA_RANK, UNL_UNLEARN_SEED = 10, 16, 1
-UNL_LOCAL, UNL_GLOBAL = (16, 20), (64, 20)  # (n_samples, DDIM steps)
-UNL_SMALL_IMAGES, UNL_SMALL_CLASSES, UNL_WF_BATCHES, UNL_GT_STEPS = 1500, 3, 16, 5
-UNL_LDM_STEPS, UNL_LDM_BATCH = 3, 32
+UNL_LOCAL, UNL_GLOBAL = (8, 10), (64, 10)  # (n_samples, DDIM steps)
+UNL_SMALL_IMAGES, UNL_SMALL_CLASSES, UNL_WF_BATCHES, UNL_GT_STEPS = 750, 3, 8, 2
+UNL_LDM_STEPS, UNL_LDM_BATCH = 2, 32
 # [local]: per-example attribution and local behaviors on both unconditional
 # workloads. grad_features on [ldm]'s CelebA full anchor and tagged latents cache at
 # LOC_BATCH (the train source LOC_TRAIN examples x LOC_TIMESTEPS timesteps; generated
@@ -449,8 +464,8 @@ UNL_LDM_STEPS, UNL_LDM_BATCH = 3, 32
 # window of the last LOC_JL_WINDOW coordinates of every row (the rest zero: each
 # output row is a sum over its row's coordinates), where the last row's offsets
 # b*D + d all pass 2^31.
-LOC_BATCH, LOC_TRAIN, LOC_TIMESTEPS, LOC_PROJ = 8, 16, 5, 4096
-LOC_GEN_STEPS, LOC_JOURNEY_STEPS = 20, 5
+LOC_BATCH, LOC_TRAIN, LOC_TIMESTEPS, LOC_PROJ = 8, 16, 2, 4096
+LOC_GEN_STEPS, LOC_JOURNEY_STEPS = 4, 2
 LOC_JL = (8, 274_056_163, 4096)
 LOC_JL_WINDOW = 1 << 24
 # The CelebA U-Net's attention and GroupNorms under vmap(grad) at LOC_BATCH, one
@@ -459,11 +474,11 @@ LOC_VMAP_ATTN = [(1024, 14, 32), (256, 21, 32), (64, 28, 32)]
 LOC_VMAP_GN = [(224, 64, 64), (448, 32, 32), (672, 16, 16), (896, 8, 8)]
 # sketch_quality on CIFAR (full, attn_full, a probe at each k), then the local
 # behaviors on CIFAR and CelebA: LOC_LOCAL samples x LOC_LOCAL_STEPS[dataset] DDIM
-# steps, LOC_NOISES loss draws. CelebA takes 10 steps: each step of its local loss
-# decodes both models' x0-hat through the VQ decoder.
-LOC_SKETCH = dict(max_examples=64, n_gen=32, ks=(16, 64), timesteps=2, steps=20, proj=512)
+# steps, LOC_NOISES loss draws. CelebA takes fewer steps: each step of its local
+# loss decodes both models' x0-hat through the VQ decoder.
+LOC_SKETCH = dict(max_examples=64, n_gen=32, ks=(16, 64), timesteps=2, steps=10, proj=512)
 LOC_LOCAL, LOC_NOISES = 8, 4
-LOC_LOCAL_STEPS = {"cifar": 20, "celeba": 10}
+LOC_LOCAL_STEPS = {"cifar": 5, "celeba": 2}
 # An attention-only backward (TRAK's probe and attn_full modes) skips the 7
 # GroupNorms before the first attention block's projections, in the CelebA U-Net
 # as in CIFAR's (unet_counts).
@@ -478,6 +493,20 @@ CIFAR100_TRAIN_IMAGES, MNIST_TRAIN_IMAGES = 50_000, 60_000
 DATA_RESNET_CHECK, DATA_RESNET_BATCH = 8, 256
 DATA_MNIST_STEPS, DATA_MNIST_BATCH, DATA_MNIST_SAMPLES, DATA_MNIST_SAMPLE_STEPS = 5, 64, 16, 20
 MNIST_ATTN_SHAPES = [(64, 64, 64, 1, 256)]  # the 8x8 attention, one head of 256, batch 64
+
+# [cond]: the prompt-conditional path. cli.main COND_CLI_STEPS steps on each
+# synthetic conditional config (--scan_chunk COND_CLI_CHUNK in one run), a grid
+# each; at full width the imagenette U-Net on the 32-layer LDMBert: the tower
+# card vs CPU over its first COND_TOWER_DEPTH layers (hidden states after the
+# final LayerNorm, of unit scale: atol), COND_WARM + COND_STEPS steps at
+# COND_BATCH, one step at COND_REF_BATCH card vs CPU (TRAIN_STEP_RTOL), a grid
+# of COND_GRID x COND_GRID_STEPS DDIM steps; Pipeline.generate_images of
+# COND_PIPE_SAMPLES x COND_PIPE_STEPS steps on the CIFAR checkpoint.
+COND_CLI_STEPS, COND_CLI_CHUNK = 4, 2
+COND_BATCH, COND_WARM, COND_STEPS, COND_REF_BATCH = 64, 1, 3, 1
+COND_TOWER_DEPTH, COND_TOWER_ATOL = 4, 1e-4
+COND_GRID, COND_GRID_STEPS = 10, 10
+COND_PIPE_SAMPLES, COND_PIPE_STEPS = 4, 10
 # WoodFisher card vs CPU at CIFAR width: k_vec from 4 images (2 batches of 2) and
 # injected draws; the change k - v within WF_RTOL of the CPU's in L2 norm (two
 # gradients of 35.7M entries, each TRAIN_STEP_RTOL-close, through two dot products).
@@ -486,6 +515,22 @@ WF_RTOL, WF_BATCH, WF_BATCHES = 1e-3, 2, 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def marks() -> tuple:
+    """(wall clock, host CPU seconds of this process over all its threads)."""
+    return time.perf_counter(), time.process_time()
+
+
+def phase_done(label: str, since: tuple, tmp: str) -> tuple:
+    """Log a phase's wall seconds beside the host CPU seconds this process
+    spent in it and the bytes the run directory holds at its end; returns
+    the marks of the next phase."""
+    wall, cpu = time.perf_counter() - since[0], time.process_time() - since[1]
+    held = sum(os.lstat(os.path.join(d, f)).st_size for d, _, fs in os.walk(tmp) for f in fs)
+    log(f"{label} {wall:.1f} s (host CPU {cpu:.1f} s; the run directory holds "
+        f"{held / 2**30:.2f} GiB)")
+    return marks()
 
 
 def card_line() -> str:
@@ -1296,41 +1341,16 @@ def check_towers(torch, np, dev, card: str) -> None:
 
 
 def check_scores(torch, np, ops, root: str, card: str) -> dict:
-    """shapley_pipeline --behavior fid_value at full width on the stand-in,
-    then calculate_global_scores on its full anchor's checkpoint, each
-    between a counter reset and a read, with the launches the code implies,
-    and scipy's sqrtm memoised by its input's bytes. Returns the summed
-    counts."""
-    from scipy import linalg
-
-    outdir = os.path.join(root, "scores")
-    ref_stats = os.path.join(outdir, "inception_ref_stats.pkl")
-    roots, calls, sqrtm = {}, [], linalg.sqrtm
-
-    def sqrtm_once(a, *args, **kwargs):
-        key = (a.shape, hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest())
-        calls.append(key)
-        if key not in roots:
-            roots[key] = sqrtm(a, *args, **kwargs)
-        return roots[key]
-
-    linalg.sqrtm = sqrtm_once
-    try:
-        return _check_scores(torch, np, ops, outdir, ref_stats, card, roots, calls)
-    finally:
-        linalg.sqrtm = sqrtm
-
-
-def _check_scores(torch, np, ops, outdir: str, ref_stats: str, card: str, roots: dict,
-                  calls: list) -> dict:
-    """check_scores' calls, with the host square roots of `roots` (memo) and
-    `calls` (each call's input key)."""
+    """shapley_pipeline --behavior is at full width on the stand-in, then
+    calculate_global_scores (FID, IS, precision and recall) on its full
+    anchor's checkpoint, each between a counter reset and a read, with the
+    launches the code implies. Returns the summed counts."""
     from group_attribution_for_diffusion_models_tpu_torch.cli import (
         calculate_global_scores, shapley_pipeline)
     from group_attribution_for_diffusion_models_tpu_torch.utils.jsonl import read_records
 
+    outdir = os.path.join(root, "scores")
     members = SCORE_FIT + SCORE_TEST + 2  # and the null and full anchors
-    steps = (SCORE_FIT + SCORE_TEST + 1) * SCORE_STEPS
     # The fit call, the test call and the full anchor each stack their members
     # (a forward and backward a step); one forward a DDIM step a member.
     launch = 3 * SCORE_STEPS
@@ -1343,7 +1363,7 @@ def _check_scores(torch, np, ops, outdir: str, ref_stats: str, card: str, roots:
         "--dataset", "cifar", "--by_class", "--fit_dist", "shapley", "--removal_seed", "0",
         "--num_fit_subsets", str(SCORE_FIT), "--num_test_subsets", str(SCORE_TEST),
         "--test_seed_start", str(PIPE_TEST_SEED), "--training_steps", str(SCORE_STEPS),
-        "--batch_size", str(SCORE_BATCH), "--behavior", "fid_value",
+        "--batch_size", str(SCORE_BATCH), "--behavior", "is",
         "--n_samples", str(SCORE_SAMPLES), "--num_inference_steps", str(SCORE_SAMPLE_STEPS),
         "--no-save_ckpts", "--device", "cuda",
         "--outdir", outdir])
@@ -1351,63 +1371,58 @@ def _check_scores(torch, np, ops, outdir: str, ref_stats: str, card: str, roots:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    pipe_roots = len(roots)
-    rows = [x for x in read_records(r["db"]) if "fid_value" in x]
-    fids = [x["fid_value"] for x in rows]
+    rows = [x for x in read_records(r["db"]) if x.get("is") is not None]
+    values = [x["is"] for x in rows]
     sec, row = r["seconds"], r["row"]
     resid = abs(r["attrs"].sum() - (r["v1"] - r["v0"]))
     limit = EFFICIENCY_RTOL * max(1.0, abs(r["v1"] - r["v0"]))
-    log(f"[scores] shapley_pipeline --behavior fid_value cifar by class f32 on {card}: "
+    log(f"[scores] shapley_pipeline --behavior is cifar by class f32 on {card}: "
         f"{row['num_fit_subsets']} fit and {row['num_test_subsets']} test subsets x "
         f"{SCORE_STEPS} steps at batch {SCORE_BATCH}, two anchors, {SCORE_SAMPLES} samples x "
         f"{SCORE_SAMPLE_STEPS} DDIM steps a member; seconds: training {sec['train']:.3f}, "
         f"sampling {sec['sample']:.3f} ({sec['sample'] / members:.3f} a member), tower "
-        f"{sec['tower']:.3f} (synchronised host clock, with the 2048 reference images), "
-        f"FID math {sec['fid']:.3f} (host, {pipe_roots} sqrtm of {len(calls)} calls, "
-        f"{sec['fid'] / max(1, pipe_roots):.3f} each); "
-        f"pipeline clock {r['train_seconds']:.3f} s, subset_passes_per_hour "
-        f"{row['subset_passes_per_hour']}, call {wall:.3f} s, peak {peak_gib:.2f} GiB; "
-        f"v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, efficiency residual {resid:.3g} (limit "
-        f"{limit:.3g}), lds_pooled {row['lds_pooled']:.4f}; launches {counts} (expected {want})")
-    log(f"[scores] fid_value per member (seed order of the DB): "
+        f"{sec['tower']:.3f} (synchronised host clock); pipeline clock "
+        f"{r['train_seconds']:.3f} s, subset_passes_per_hour {row['subset_passes_per_hour']}, "
+        f"call {wall:.3f} s, peak {peak_gib:.2f} GiB; v1 {r['v1']:.6f}, v0 {r['v0']:.6f}, "
+        f"efficiency residual {resid:.3g} (limit {limit:.3g}), lds_pooled "
+        f"{row['lds_pooled']:.4f}; launches {counts} (expected {want})")
+    log(f"[scores] is per member (seed order of the DB): "
         + ", ".join(f"{x['removal_dist']}:{x['removal_seed']}@{x['training_steps']}="
-                    f"{x['fid_value']:.4f}" for x in rows))
+                    f"{x['is']:.6f}" for x in rows))
     if counts != want:
         raise AssertionError(f"scores path launches {counts}, expected {want}")
-    if not (len(fids) == members and all(math.isfinite(f) and f > 0 for f in fids)):
-        raise AssertionError(f"scores path: fid values {fids}")
+    if not (len(values) == members and all(math.isfinite(v) and v >= 1.0 for v in values)):
+        raise AssertionError(f"scores path: IS values {values}")
     if not (r["attrs"].shape == (10,) and np.isfinite(r["attrs"]).all() and resid <= limit):
         raise AssertionError(f"scores path: attributions {r['attrs']}")
     (anchor,) = [x for x in rows if x["removal_dist"] == "full"
                  and x["training_steps"] == SCORE_STEPS]
 
     full = os.path.join(outdir, "cifar", "retrain", "models", "full")
-    pipe_calls = len(calls)
     torch.cuda.synchronize()
     reset_counts(ops)
     t0 = time.perf_counter()
     g = calculate_global_scores.main([
         "--dataset", "cifar", "--load", full, "--n_samples", str(SCORE_SAMPLES),
         "--batch_size", str(SCORE_SAMPLES), "--num_inference_steps", str(SCORE_SAMPLE_STEPS),
-        "--seed", str(SCORE_SEED), "--pr_extractor", "vgg16", "--ref_stats", ref_stats,
+        "--seed", str(SCORE_SEED), "--pr_extractor", "vgg16",
+        "--ref_stats", os.path.join(outdir, "inception_ref_stats.pkl"),
         "--outdir", outdir, "--device", "cuda"])
     torch.cuda.synchronize()
     g_wall = time.perf_counter() - t0
     g_counts = ops.launch_counts()
     g_want = unet_counts(SCORE_SAMPLE_STEPS, 0)
-    rel = abs(g["fid_value"] - anchor["fid_value"]) / anchor["fid_value"]
+    rel = abs(g["is"] - anchor["is"]) / anchor["is"]
     log(f"[scores] calculate_global_scores on the full anchor's checkpoint: fid "
-        f"{g['fid_value']:.6f} (the anchor's pipeline row {anchor['fid_value']:.6f}, rel "
-        f"{rel:.3g}, equal={g['fid_value'] == anchor['fid_value']}), is {g['is']:.6f} "
-        f"(row {anchor['is']:.6f}) +- {g['is_std']:.4f}, precision {g['precision']}, recall "
+        f"{g['fid_value']:.6f} (one host sqrtm), is {g['is']:.6f} +- {g['is_std']:.4f} (the "
+        f"anchor's pipeline row {anchor['is']:.6f}, rel {rel:.3g}, "
+        f"equal={g['is'] == anchor['is']}), precision {g['precision']}, recall "
         f"{g['recall']} (VGG16 fc2), sampling {g['sampling_time']:.3f} s, scoring "
-        f"{g['scoring_time']:.3f} s ({len(calls) - pipe_calls} sqrtm calls, "
-        f"{len(roots) - pipe_roots} new roots: its input "
-        f"{'is' if len(roots) == pipe_roots else 'is not'} one the pipeline rooted), call "
-        f"{g_wall:.3f} s; launches {g_counts} (expected {g_want})")
+        f"{g['scoring_time']:.3f} s, call {g_wall:.3f} s; launches {g_counts} (expected "
+        f"{g_want})")
     if g_counts != g_want:
         raise AssertionError(f"calculate_global_scores launches {g_counts}, expected {g_want}")
-    if not (rel <= SCORE_FID_RTOL and abs(g["is"] - anchor["is"]) <= SCORE_FID_RTOL * g["is"]
+    if not (rel <= SCORE_RTOL and math.isfinite(g["fid_value"]) and g["fid_value"] > 0
             and 0.0 <= g["precision"] <= 1.0 and 0.0 <= g["recall"] <= 1.0):
         raise AssertionError("calculate_global_scores disagrees with the anchor's row")
     return {k: counts[k] + g_counts[k] for k in counts}
@@ -1514,7 +1529,7 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
     from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
     from group_attribution_for_diffusion_models_tpu_torch.data import create_dataset
     from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
-    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D, empty_unet
     from group_attribution_for_diffusion_models_tpu_torch.models.blip_vision import (
         load_blip_vision)
     from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
@@ -1583,7 +1598,8 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
     total = counts
 
     # shapley_pipeline: the first call encodes the stand-in (LDM_IMAGES / 32
-    # batches), every other call reads the cache.
+    # batches), every other call reads the cache. Only the anchors are
+    # checkpointed (2.2 GB each): no later call reads a member's weights.
     members = LDM_FIT + LDM_TEST + 2
     steps = (LDM_FIT + LDM_TEST + 1) * LDM_STEPS  # member-steps
     # Each train_ensemble call stacks its members (the default --chunk_size at
@@ -1594,7 +1610,7 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
         "--dataset", "celeba", "--by_class", "--fit_dist", "shapley", "--removal_seed", "0",
         "--num_fit_subsets", str(LDM_FIT), "--num_test_subsets", str(LDM_TEST),
         "--test_seed_start", str(PIPE_TEST_SEED), "--training_steps", str(LDM_STEPS),
-        "--batch_size", str(LDM_BATCH), "--behavior", "eval_loss",
+        "--batch_size", str(LDM_BATCH), "--behavior", "eval_loss", "--no-save_ckpts",
         "--vqvae_weights", weights, "--device", "cuda", "--outdir", outdir])
     enc_counts, enc_routes = encodes(LDM_IMAGES // 32)
     sec, row = r["seconds"], r["row"]
@@ -1652,10 +1668,9 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
     ck = load_checkpoint(full)
     models = {}
     for device in ("cpu", dev):
-        m = UNet2D(spec)
+        m = empty_unet(spec, device=device)
         m.load_state_dict(ck["ema_params"])
-        models[str(device)] = (m.to(device).eval(), load_vqvae(vq, weights, quiet=True,
-                                                                device=device))
+        models[str(device)] = (m.eval(), load_vqvae(vq, weights, quiet=True, device=device))
     noise = torch.from_numpy(np.random.default_rng(16).standard_normal(
         (1, 3, 64, 64)).astype(np.float32))
     got = {}
@@ -1668,7 +1683,7 @@ def check_ldm(torch, np, ops, root: str, card: str, dev) -> dict:
             return decode(z)
 
         imgs_ = make_sampler(m, cfg.scheduler, (1, 3, 64, 64), device=device,
-                             num_inference_steps=LDM_REF_STEPS, decode_fn=capture)(
+                             num_inference_steps=LDM_REF_STEPS, kind="ddim", decode_fn=capture)(
             init_noise=noise)
         got[device] = (seen[0].cpu(), imgs_.cpu())
     (z_cpu, img_cpu), (z_card, img_card) = got["cpu"], got[str(dev)]
@@ -1984,7 +1999,8 @@ def check_tti(torch, np, ops, root: str, card: str, dev) -> dict:
             return functional_call(m, buffers, (x, t, c))
 
         make_sampler(eps, MINISD_SCHEDULER, (1, 4, 32, 32), device=device,
-                     num_inference_steps=TTI_REF_STEPS, decode_fn=lambda z, seen=seen: (
+                     num_inference_steps=TTI_REF_STEPS, kind="ddim",
+                     decode_fn=lambda z, seen=seen: (
                          seen.append(z.cpu()) or z), encoder_hidden_states=e_cpu[:1])(
             init_noise=noise)
         got[device] = seen[0]
@@ -2993,8 +3009,9 @@ def check_ensemble(torch, np, ops, dev, card: str, root: str) -> dict:
 
 
 def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
-    """train_ensemble.main at full width: a warm-up run, then the timed run
-    with the launch counters reset just before and read just after."""
+    """train_ensemble.main at full width, timed, with the launch counters
+    reset just before and read just after (no warm-up call: the first
+    step's set-up is among the timed steps)."""
     from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import (
         get_max_steps, load_checkpoint)
     from group_attribution_for_diffusion_models_tpu_torch.utils.jsonl import read_records
@@ -3008,9 +3025,6 @@ def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
                 "--num_inference_steps", str(TRAIN_SAMPLE_STEPS),
                 "--outdir", outdir, "--device", "cuda"]
 
-    t0 = time.perf_counter()
-    train_ensemble.main(argv(os.path.join(root, "warm"), TRAIN_WARM_STEPS))
-    warm_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(ops)
@@ -3030,8 +3044,8 @@ def check_training_path(torch, np, ops, train_ensemble, root: str, card: str):
         f"f32 on {card}: {train_s / steps:.4f} s per ensemble step, "
         f"{member_steps / train_s:.3f} member-steps/s ({train_s:.3f} s of training; "
         f"eval + {TRAIN_SAMPLES} samples x {TRAIN_SAMPLE_STEPS} steps per member "
-        f"{summary['sample_seconds']:.3f} s of sampling), call {wall:.3f} s "
-        f"(warm-up call of {TRAIN_WARM_STEPS} steps {warm_s:.3f} s), peak {peak_gib:.2f} GiB")
+        f"{summary['sample_seconds']:.3f} s of sampling), call {wall:.3f} s, "
+        f"peak {peak_gib:.2f} GiB")
     # The members are stacked: one launch a kernel site a step for all of them;
     # the eval loss and the samples run member by member.
     want = unet_counts(steps + m * (1 + TRAIN_SAMPLE_STEPS), steps)
@@ -3827,6 +3841,309 @@ def check_data(torch, np, ops, root: str, data_root: str, card: str, dev) -> dic
     return total
 
 
+def write_ldm_bert_npz(torch, np, tower, path: str) -> None:
+    """`tower`'s weights as the JAX package's ``cli.convert_weights ldm_bert``
+    writes them: '/'-joined flax paths, kernels (in, out), LayerNorm
+    ``scale``."""
+    flat = {}
+    for key, value in tower.state_dict().items():
+        v = value.detach().cpu().numpy()
+        module, leaf = key.rsplit(".", 1)
+        parts = module.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}"] + parts[2:]
+        if module == "embed_positions":
+            flat["embed_positions"] = v
+        elif module == "embed_tokens":
+            flat["embed_tokens/embedding"] = v
+        elif leaf == "weight" and v.ndim == 2:
+            flat["/".join(parts + ["kernel"])] = v.T
+        else:
+            flat["/".join(parts + ["scale" if leaf == "weight" else "bias"])] = v
+    np.savez(path, **flat)
+
+
+def check_cond(torch, np, ops, root: str, card: str, dev, cifar_model_dir: str) -> dict:
+    """The prompt-conditional path of cli.main. Through the CLI on the
+    synthetic conditional configs (an LDMBert .npz and a vocab.txt the phase
+    writes; both loops; the CLIP tower; the latent conditional config). At
+    full width: the imagenette U-Net conditioned on the 32-layer LDMBert
+    through `cli.common.class_conditioning`, the tower card vs CPU at a cut
+    depth and timed, the step cli.main builds (AdamW) at batch 64 timed with
+    its launches and peak, one step at batch 1 card vs CPU, a conditioned
+    DDIM grid, one step each with adam8bit and adafactor and their peaks.
+    cli.main cannot run imagenette itself (its JAX config gives pixels to a
+    latent U-Net; ROADMAP C4), so these calls go around its dataset loader.
+    Then `pipelines.Pipeline.generate_images` on the CIFAR checkpoint of
+    [main]: DDIM at eta 0 (bit for bit `make_sampler`'s) and 1, DDPM.
+    Returns the summed launches of the main paths."""
+    from PIL import Image
+
+    from group_attribution_for_diffusion_models_tpu_torch import pipelines
+    from group_attribution_for_diffusion_models_tpu_torch.cli import main as main_cli
+    from group_attribution_for_diffusion_models_tpu_torch.cli.common import (
+        class_conditioning, config_for)
+    from group_attribution_for_diffusion_models_tpu_torch.cli.generate_samples import (
+        batch_generator)
+    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import (
+        make_sampler, make_schedule)
+    from group_attribution_for_diffusion_models_tpu_torch.models import UNet2D, build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.models.bert_tokenizer import (
+        _basic_tokenize)
+    from group_attribution_for_diffusion_models_tpu_torch.models.layers import (
+        CrossAttention, GroupNormSiLU)
+    from group_attribution_for_diffusion_models_tpu_torch.models.ldm_bert import (
+        LDMBertEncoder, ldm_bert_spec, load_ldm_bert)
+    from group_attribution_for_diffusion_models_tpu_torch.training import (
+        TrainState, make_optimizer, make_train_step)
+
+    def attn_gn(spec):
+        """(attention calls the kernels take, those of the plain route (a head
+        dim that is not a multiple of 8), GroupNorms, parameters) of a U-Net
+        forward."""
+        with torch.device("meta"):
+            unet = UNet2D(spec)
+        dims = [m.to_q.out_features // m.heads for m in unet.modules()
+                if isinstance(m, CrossAttention)]
+        kernel = sum(d % 8 == 0 and d <= 256 for d in dims)
+        return (kernel, len(dims) - kernel,
+                sum(isinstance(m, GroupNormSiLU) for m in unet.modules()),
+                sum(p.numel() for p in unet.parameters()))
+
+    def timed(fn, argv):
+        return timed_call(torch, ops, fn, argv)
+
+    out = os.path.join(root, "cond")
+    vocab_dir = os.path.join(out, "vocab")
+    os.makedirs(vocab_dir, exist_ok=True)
+    captioner = pipelines.ImagenetteCaptioner()
+    prompts = captioner(range(captioner.num_classes))
+    words = sorted({w for p in prompts for w in _basic_tokenize(p)})
+    with open(os.path.join(vocab_dir, "vocab.txt"), "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + words) + "\n")
+
+    # Through cli.main on the synthetic conditional configs.
+    small = load_ldm_bert(None, device="cpu", quiet=True, **ldm_bert_spec(32))
+    npz = os.path.join(out, "ldm_bert_32.npz")
+    write_ldm_bert_npz(torch, np, small, npz)
+    back = load_ldm_bert(npz, device="cpu", **ldm_bert_spec(32)).state_dict()
+    if any(not torch.equal(v, back[k]) for k, v in small.state_dict().items()):
+        raise AssertionError("the LDMBert .npz does not read back")
+    total = None
+    runs = [("synthetic_64x8_cond", ["--text_encoder_weights", npz, "--tokenizer_dir",
+                                     vocab_dir]),
+            ("synthetic_64x8_cond", ["--text_encoder_weights", npz, "--tokenizer_dir",
+                                     vocab_dir, "--scan_chunk", str(COND_CLI_CHUNK)]),
+            ("synthetic_64x8_cond", ["--text_encoder_kind", "clip", "--random_text_encoder"]),
+            ("synthetic_64x16_ldm_cond", ["--random_text_encoder", "--tokenizer_dir",
+                                          vocab_dir])]
+    for i, (dataset, extra) in enumerate(runs):
+        argv = ["--dataset", dataset, "--outdir", os.path.join(out, f"cli{i}"),
+                "--training_steps", str(COND_CLI_STEPS), "--sample_freq", str(COND_CLI_STEPS),
+                "--n_inference_samples", "4", "--log_freq", "1", "--device", "cuda"] + extra
+        r, wall, counts, routes, peak = timed(main_cli.main, argv)
+        grid = os.path.join(r["model_dir"], "samples", f"steps_{COND_CLI_STEPS:08d}.png")
+        n_attn, n_plain, n_gn, _ = attn_gn(config_for(dataset).unet)
+        forwards = COND_CLI_STEPS + main_cli.GRID_STEPS
+        want = add_counts(tti_counts(n_attn, n_gn, n_gn, COND_CLI_STEPS, COND_CLI_STEPS),
+                          tti_counts(n_attn, n_gn, 0, main_cli.GRID_STEPS))
+        want_routes = {"attention_plain_fwd": n_plain * forwards,
+                       "attention_plain_bwd": n_plain * COND_CLI_STEPS}
+        log(f"[cond] cli.main {dataset} {' '.join(extra[-2:])}: {COND_CLI_STEPS} steps, loss "
+            f"{r['loss']:.5f}, train {r['train_seconds']:.3f} s, grid {grid}, call {wall:.3f} s,"
+            f" launches {counts} (U-Net: {want}), plain route {routes} (U-Net: {want_routes})")
+        # The latent config's VQ encode and decode add launches of their own.
+        latent = config_for(dataset).vqvae is not None
+        if not (math.isfinite(r["loss"]) and os.path.exists(grid)
+                and np.asarray(Image.open(grid)).std() > 0
+                and (latent or (counts == want and routes == want_routes))
+                and all(counts[k] >= want[k] for k in want)):
+            raise AssertionError(f"cli.main {dataset} {extra}: {r}")
+        total = counts if total is None else add_counts(total, counts)
+
+    # At full width: the imagenette U-Net on the 32-layer LDMBert.
+    cfg = get_config("imagenette")
+    spec, sched, opt = cfg.unet, cfg.scheduler, cfg.train.optimizer
+    n_attn, n_plain, n_gn, n_params = attn_gn(spec)
+    t0 = time.perf_counter()
+    tower, tokenize, class_emb = class_conditioning(
+        "ldm_bert", spec.cross_attention_dim, captioner.num_classes,
+        tokenizer_dir=vocab_dir, random_tower=True, dataset="imagenette", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tower_params = sum(p.numel() for p in tower.parameters())
+    ids = torch.from_numpy(np.asarray(tokenize(prompts), np.int64)).to(dev)
+    with torch.no_grad():
+        tower_ms = cuda_ms(torch, lambda: tower(ids), iters=5)
+        cut = dict(ldm_bert_spec(spec.cross_attention_dim), layers=COND_TOWER_DEPTH)
+        keep = {k: v for k, v in tower.state_dict().items()
+                if not k.startswith("layers.") or int(k.split(".")[1]) < COND_TOWER_DEPTH}
+        towers = []
+        for device in ("cpu", dev):
+            with torch.device(device):
+                m = LDMBertEncoder(**cut)
+            m.load_state_dict({k: v.to(device) for k, v in keep.items()})
+            towers.append(m(ids.to(device)).cpu())
+    tower_err = (towers[0] - towers[1]).abs().max().item()
+    log(f"[cond] LDMBert {tower_params} params (32 layers, d_model 1280, attention 8 x 64) "
+        f"built with the class embeddings {tuple(class_emb.shape)} in {build_s:.3f} s on {card}; "
+        f"tower on the {len(prompts)} captions ({tuple(ids.shape)} ids) {tower_ms:.3f} ms; "
+        f"card vs CPU at depth {COND_TOWER_DEPTH}: max_abs_err={tower_err:.3g} "
+        f"(tol {COND_TOWER_ATOL}); ids {ids[0, :9].tolist()}")
+    if not (tower_params == 542_895_360 and tower_err <= COND_TOWER_ATOL
+            and torch.isfinite(class_emb).all() and int(ids.max()) < len(words) + 4):
+        raise AssertionError("the LDMBert tower on the card")
+    del tower
+
+    model = build_unet(spec, 7, device=dev)
+    if (n_params != 872_300_484 or n_plain or n_attn != 32
+            or sum(p.numel() for p in model.parameters()) != n_params):
+        raise AssertionError(f"the imagenette U-Net has {n_params} parameters")
+    start = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(8)
+    latents = torch.from_numpy(rng.standard_normal(
+        (COND_BATCH, 4, spec.sample_size, spec.sample_size)).astype(np.float32)).to(dev)
+    labels = torch.arange(COND_BATCH, device=dev) % captioner.num_classes
+    ehs = class_emb[labels]
+    schedule = make_schedule(sched, dev)
+
+    def train(name: str, steps: int, warm: int):
+        """(seconds a step, peak GiB, launches, losses) of the step cli.main
+        builds with optimizer `name` on the seeded model, from its start."""
+        model.load_state_dict(start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tx = make_optimizer(name, lr=opt.lr, weight_decay=opt.weight_decay,
+                            grad_clip_norm=opt.grad_clip_norm)
+        state = TrainState.create(model, tx)
+        step = make_train_step(tx, schedule, sched, conditional=True)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        losses = []
+
+        def one():
+            losses.append(step(state, latents, gen, encoder_hidden_states=ehs)["loss"])
+        for _ in range(warm):
+            one()
+        reset_counts(ops)
+        secs = timed_steps(torch, one, steps)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.empty_cache()
+        return secs, peak, counts, [x.item() for x in losses]
+
+    step_s, peak_adamw, counts, losses = train(opt.name, COND_STEPS, COND_WARM)
+    want = tti_counts(n_attn, n_gn, n_gn, COND_STEPS, COND_STEPS)
+    log(f"[cond] imagenette U-Net {n_params} params ({n_attn} attention calls, {n_gn} "
+        f"GroupNorms a forward), the step cli.main builds ({opt.name} lr {opt.lr} wd "
+        f"{opt.weight_decay}, clip {opt.grad_clip_norm}), batch {COND_BATCH} seeded 4x32x32 "
+        f"latents, labels 0-9 -> LDMBert contexts (77, 1280), f32 TF32 off, on {card} (around "
+        f"cli.main's loader: ROADMAP C4): {step_s:.4f} s a step over {COND_STEPS} after "
+        f"{COND_WARM} warm ({COND_BATCH / step_s:.2f} samples/s), peak {peak_adamw:.2f} GiB; "
+        f"losses {[round(x, 5) for x in losses]}; launches per step "
+        f"{ {k: v // COND_STEPS for k, v in counts.items()} } (expected "
+        f"{ {k: v // COND_STEPS for k, v in want.items()} })")
+    if counts != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the conditional step: launches {counts}, losses {losses}")
+    total = add_counts(total, counts)
+    peaks = {}
+    for name in ("adam8bit", "adafactor"):
+        secs, peaks[name], counts, losses = train(name, 1, 0)
+        log(f"[cond] {name}: one step {secs:.4f} s, peak {peaks[name]:.2f} GiB (AdamW "
+            f"{peak_adamw:.2f}), loss {losses[0]:.5f}")
+        if counts != tti_counts(n_attn, n_gn, n_gn, 1, 1) or not math.isfinite(losses[0]):
+            raise AssertionError(f"{name}: launches {counts}, losses {losses}")
+        total = add_counts(total, counts)
+
+    # One step at a small batch, card against CPU, from the same weights and draws.
+    b = COND_REF_BATCH
+    t_ref = torch.tensor([999, 20][:b])
+    noise = torch.from_numpy(rng.standard_normal((b, 4, 32, 32)).astype(np.float32))
+
+    def ref_step(device):
+        with torch.device("meta"):
+            m = UNet2D(spec)
+        m.load_state_dict({k: v.to(device, copy=True) for k, v in start.items()}, assign=True)
+        tx = make_optimizer(opt.name, lr=opt.lr, weight_decay=opt.weight_decay,
+                            grad_clip_norm=opt.grad_clip_norm)
+        state = TrainState.create(m, tx)
+        metrics = make_train_step(tx, make_schedule(sched, device), sched, conditional=True)(
+            state, latents[:b].to(device), timesteps=t_ref.to(device), noise=noise.to(device),
+            encoder_hidden_states=ehs[:b].to(device))
+        return (metrics["loss"].item(), metrics["grad_norm"].item(),
+                [p.grad.detach().cpu() for p in state.params])
+
+    t0 = time.perf_counter()
+    loss_c, norm_c, grads_c = ref_step("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_g, norm_g, grads_g = ref_step(dev)
+    gmax = max(g.abs().max().item() for g in grads_c)
+    gerr = max((a - w).abs().max().item() for a, w in zip(grads_g, grads_c))
+    loss_rel, norm_rel = abs(loss_g - loss_c) / abs(loss_c), abs(norm_g - norm_c) / norm_c
+    log(f"[cond] one step at batch {b}, card vs CPU (CPU {cpu_s:.1f} s): loss {loss_g:.6f} vs "
+        f"{loss_c:.6f} (rel {loss_rel:.3g}), grad norm rel {norm_rel:.3g}, max |dg| {gerr:.3g} "
+        f"of max |g| {gmax:.3g} (rel {gerr / gmax:.3g}; tol {TRAIN_STEP_RTOL})")
+    if not (loss_rel <= TRAIN_STEP_RTOL and norm_rel <= TRAIN_STEP_RTOL
+            and gerr <= TRAIN_STEP_RTOL * gmax):
+        raise AssertionError("the conditional step on the card disagrees with the CPU")
+    del grads_c, grads_g
+
+    # A conditioned DDIM grid, class i for sample i.
+    model.eval()
+    reset_counts(ops)
+    grid_ehs = class_emb[torch.arange(COND_GRID, device=dev) % captioner.num_classes]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    t0 = time.perf_counter()
+    grid = make_sampler(model, sched, (COND_GRID, 4, 32, 32), device=dev,
+                        num_inference_steps=COND_GRID_STEPS, kind="ddim",
+                        encoder_hidden_states=grid_ehs)(generator=gen)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"[cond] conditioned DDIM grid {tuple(grid.shape)} x {COND_GRID_STEPS} steps "
+        f"{grid_s:.3f} s, launches {counts}")
+    if (counts != tti_counts(n_attn, n_gn, 0, COND_GRID_STEPS)
+            or not torch.isfinite(grid).all() or grid.std() == 0):
+        raise AssertionError("the conditioned grid")
+    total = add_counts(total, counts)
+    del model, class_emb, ehs, latents, grid
+    torch.cuda.empty_cache()
+
+    # Pipeline.generate_images on [main]'s CIFAR checkpoint.
+    pipe = pipelines.load_ckpt_model(cifar_model_dir, "cifar", device=dev)
+    n, steps = COND_PIPE_SAMPLES, COND_PIPE_STEPS
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    images = {kw: pipe.generate_images(n, seed=3, batch_size=n, num_inference_steps=steps,
+                                       **dict(kw))
+              for kw in ((("kind", "ddim"),), (("kind", "ddim"), ("eta", 1.0)),
+                         (("kind", "ddpm"),))}
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    init = torch.randn((n, 3, 32, 32), generator=batch_generator(3, 0, dev), device=dev)
+    want_img = make_sampler(pipe.model, pipe.cfg.scheduler, (n, 3, 32, 32), device=dev,
+                            num_inference_steps=steps, kind="ddim")(
+        init_noise=init).permute(0, 2, 3, 1).cpu().numpy()
+    ddim0, ddim1, ddpm = images.values()
+    same = np.array_equal(ddim0, want_img)
+    log(f"[cond] Pipeline.generate_images cifar ({n} x {steps} steps each): ddim eta 0, eta 1, "
+        f"ddpm in {pipe_s:.3f} s, launches {counts}; eta 0 bitwise make_sampler's: {same}; "
+        f"mean |eta 1 - eta 0| {np.abs(ddim1 - ddim0).mean():.4f}, |ddpm - ddim| "
+        f"{np.abs(ddpm - ddim0).mean():.4f}")
+    if not (same and counts == unet_counts(3 * steps, 0)
+            and all(np.isfinite(x).all() and x.shape == (n, 32, 32, 3) for x in images.values())
+            and not np.array_equal(ddim1, ddim0) and not np.array_equal(ddpm, ddim0)):
+        raise AssertionError("Pipeline.generate_images")
+    total = add_counts(total, counts)
+    log(f"[cond] launches of the phase {total}; peaks AdamW {peak_adamw:.2f}, adam8bit "
+        f"{peaks['adam8bit']:.2f}, adafactor {peaks['adafactor']:.2f} GiB on {card}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3841,49 +4158,68 @@ def main() -> int:
 def run(torch, tmp: str) -> int:
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t_start = time.perf_counter()
-    # The port reads its dataset root once, on import: the stand-in goes first.
+    # The port reads its dataset root once, on import: the root is set first.
+    # The stand-ins are written, and nvcc builds the kernels, on two threads
+    # while the port is imported; nothing reads the stand-ins before both are
+    # done.
     data_root = os.path.join(tmp, "datasets")
-    write_cifar_standin(data_root, CIFAR_TRAIN_IMAGES)
-    write_cifar100_standin(data_root)
-    write_mnist_standin(data_root)
-    write_celeba_standin(data_root)
-    write_artbench_standin(data_root)
     os.environ["GADM_DATASET_DIR"] = data_root
-    data_s = time.perf_counter() - t_start
 
-    import torch.nn.functional as F
-    from PIL import Image
+    def write_standins() -> float:
+        t0 = time.perf_counter()
+        write_cifar_standin(data_root, CIFAR_TRAIN_IMAGES)
+        write_cifar100_standin(data_root)
+        write_mnist_standin(data_root)
+        write_celeba_standin(data_root)
+        write_artbench_standin(data_root)
+        return time.perf_counter() - t0
 
-    from group_attribution_for_diffusion_models_tpu_torch import ops
-    from group_attribution_for_diffusion_models_tpu_torch.cli import (
-        generate_samples, grad_features, train_ensemble, traks)
-    from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
-    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
-    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
-    from group_attribution_for_diffusion_models_tpu_torch.ops import _build
-    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import save_checkpoint
+    def build(_build) -> tuple:
+        t0 = time.perf_counter()
+        return _build.build(), time.perf_counter() - t0
 
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    log(card)
-    log(f"[card] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    libs = _build.build()
-    log(f"[build] {len(libs)} libraries from csrc/ in {time.perf_counter() - t0:.1f} s: "
+    pool = ThreadPoolExecutor(max_workers=2)
+    standins = pool.submit(write_standins)
+    try:
+        from group_attribution_for_diffusion_models_tpu_torch.ops import _build
+
+        built = pool.submit(build, _build)
+        import torch.nn.functional as F
+        from PIL import Image
+
+        from group_attribution_for_diffusion_models_tpu_torch import ops
+        from group_attribution_for_diffusion_models_tpu_torch.cli import (
+            generate_samples, grad_features, train_ensemble, traks)
+        from group_attribution_for_diffusion_models_tpu_torch.config.registry import get_config
+        from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_sampler
+        from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+        from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import save_checkpoint
+
+        dev = torch.device("cuda", 0)
+        card = card_line()
+        log(card)
+        log(f"[card] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+            f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+        libs, build_s = built.result()
+    finally:
+        pool.shutdown(wait=True)
+    data_s = standins.result()
+    log(f"[build] {len(libs)} libraries from csrc/ in {build_s:.1f} s: "
         + ", ".join(os.path.basename(p) for p in libs.values())
         + f"; CIFAR-10 ({CIFAR_TRAIN_IMAGES} images), CIFAR-100 ({CIFAR100_TRAIN_IMAGES}), "
         f"MNIST ({MNIST_TRAIN_IMAGES}), CelebA-HQ ({LDM_IMAGES} images) and "
         f"ArtBench-style ({TTI_ARTISTS * TTI_PER_ARTIST} images) stand-ins written in "
-        f"{data_s:.1f} s")
+        f"{data_s:.1f} s beside it; {time.perf_counter() - t_start:.1f} s since the start")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # As train_ensemble sets it: cuDNN's default backward algorithms may sum
     # with atomics, and identical members must stay bit-identical.
     torch.backends.cudnn.deterministic = True
-    t0 = time.perf_counter()
+    m = marks()
     attn_rows = check_attention(torch, F, ops, dev)
     attn_bwd_rows = check_attention_bwd(torch, F, ops, dev)
     gn_rows = check_group_norm(torch, F, ops, dev)
@@ -3891,8 +4227,7 @@ def run(torch, tmp: str) -> int:
     gn_cache: dict = {}
     check_gn_census(torch, ops, dev, cache=gn_cache)
     jl_row = check_jl_projection(torch, ops, dev)
-    log(f"[kernels] phase (with [census]) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[kernels] phase (with [census])", m, tmp)
 
     spec = get_config("cifar").unet
     model = build_unet(spec, seed=0).eval()
@@ -3915,12 +4250,10 @@ def run(torch, tmp: str) -> int:
     model.cpu()
     check_prune_gn(torch, np, ops, model, spec, dev, gn_cache)
     check_train_step(torch, np, spec, dev)
-    log(f"[forward] phase (with [prune-gn], [train-step]) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[forward] phase (with [prune-gn], [train-step])", m, tmp)
     ens_counts = check_ensemble(torch, np, ops, dev, card, tmp)
-    log(f"[ensemble] phase {time.perf_counter() - t0:.1f} s")
+    m = phase_done("[ensemble] phase", m, tmp)
 
-    t0 = time.perf_counter()
     model_dir, out = os.path.join(tmp, "model"), os.path.join(tmp, "samples")
     sd = model.cpu().state_dict()
     save_checkpoint(model_dir, 0, sd, sd, unet_spec=spec)
@@ -3957,55 +4290,48 @@ def run(torch, tmp: str) -> int:
     cfg = get_config("cifar")
     noise = torch.from_numpy(rng.standard_normal((2, 3, 32, 32)).astype(np.float32))
     cpu_imgs = make_sampler(model, cfg.scheduler, (2, 3, 32, 32), device="cpu",
-                            num_inference_steps=5)(init_noise=noise)
+                            num_inference_steps=5, kind="ddim")(init_noise=noise)
     model.to(dev)
     gpu_imgs = make_sampler(model, cfg.scheduler, (2, 3, 32, 32), device=dev,
-                            num_inference_steps=5)(init_noise=noise).cpu()
+                            num_inference_steps=5, kind="ddim")(init_noise=noise).cpu()
     err = (gpu_imgs - cpu_imgs).abs().max().item()
     log(f"[reference] 5 DDIM steps, batch 2, card vs CPU: max_abs_err={err:.3g} "
         f"(tol {SAMPLE_ATOL}), finite={bool(torch.isfinite(gpu_imgs).all())}")
     if not (err <= SAMPLE_ATOL and torch.isfinite(gpu_imgs).all()):
         raise AssertionError("sampling on the card disagrees with the CPU")
-    log(f"[main] phase (with [reference]) {time.perf_counter() - t0:.1f} s")
+    m = phase_done("[main] phase (with [reference])", m, tmp)
 
-    t0 = time.perf_counter()
     train_counts = check_training_path(torch, np, ops, train_ensemble, tmp, card)
-    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[train] phase", m, tmp)
     check_trak_step(torch, np, ops, spec, dev)
     trak_counts = check_trak_path(torch, np, ops, grad_features, traks, model_dir, tmp, card)
-    log(f"[trak] phase (with [trak-step]) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[trak] phase (with [trak-step])", m, tmp)
     pipe_counts = check_pipeline(torch, np, ops, tmp, card)
-    log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[pipeline] phase", m, tmp)
     check_towers(torch, np, dev, card)
     score_counts = check_scores(torch, np, ops, tmp, card)
-    log(f"[scores] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[scores] phase", m, tmp)
     ldm_counts = check_ldm(torch, np, ops, tmp, card, dev)
-    log(f"[ldm] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[ldm] phase", m, tmp)
     tti_counts_ = check_tti(torch, np, ops, tmp, card, dev)
-    log(f"[tti] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[tti] phase", m, tmp)
     unlearn_counts = check_unlearn(torch, np, ops, tmp, card, dev, os.path.join(
         tmp, "ldm", "celeba", "vqvae", "vqvae_weights.npy"))
-    log(f"[unlearn] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[unlearn] phase", m, tmp)
     local_counts = check_local(torch, np, ops, tmp, card, dev)
-    log(f"[local] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    m = phase_done("[local] phase", m, tmp)
     data_counts = check_data(torch, np, ops, tmp, data_root, card, dev)
-    log(f"[data] phase {time.perf_counter() - t0:.1f} s")
+    m = phase_done("[data] phase", m, tmp)
+    cond_counts = check_cond(torch, np, ops, tmp, card, dev, model_dir)
+    m = phase_done("[cond] phase", m, tmp)
 
-    # launches: the eleven main paths, sampling, cli.main's scanned and
+    # launches: the twelve main paths, sampling, cli.main's scanned and
     # per-step loops, training, TRAK, the estimation loop, the sample behaviors, the latent-diffusion workload, the
     # text-to-image tier, the single-model jobs, per-example attribution and
-    # local behaviors, and workload 1's other datasets.
+    # local behaviors, workload 1's other datasets, and the prompt-conditional path.
     launches = add_counts(sample_counts, ens_counts, train_counts, trak_counts, pipe_counts,
                           score_counts, ldm_counts, tti_counts_, unlearn_counts, local_counts,
-                          data_counts)
+                          data_counts, cond_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"
@@ -4041,7 +4367,7 @@ def run(torch, tmp: str) -> int:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             if row[key] is not None and not math.isfinite(row[key]):
                 raise AssertionError(f"{row['name']}: {key} is not finite")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s (host CPU {time.process_time():.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,7 @@ from ..attributions.global_scores import (
 from ..data import create_dataset
 from ..diffusion.sampling import make_sampler
 from ..models.blip_vision import load_blip_vision, make_blip_feature_fn
-from ..models.unet2d import UNet2D
+from ..models.unet2d import empty_unet
 from ..utils.ckpt import load_checkpoint, load_meta
 from ..utils.device import resolve_device
 from ..utils.jsonl import append_record
@@ -76,13 +76,13 @@ def _sample(args, cfg, device) -> np.ndarray:
     """(n, H, W, C) DDIM samples in [0, 1] of the checkpoint's EMA weights,
     batch b drawn from (seed, b)."""
     spec = checkpoint_spec(args.load, cfg.unet)
-    model = UNet2D(spec)
+    model = empty_unet(spec)
     model.load_state_dict(load_checkpoint(args.load)["ema_params"])
     model.to(device).eval()
     batch = min(args.batch_size, args.n_samples)
     sampler = make_sampler(model, cfg.scheduler,
                            (batch, spec.in_channels, spec.sample_size, spec.sample_size),
-                           device=device, num_inference_steps=args.num_inference_steps,
+                           device=device, num_inference_steps=args.num_inference_steps, kind="ddim",
                            decode_fn=vq_decode_fn_for(cfg, args.vqvae_weights, device=device))
     chunks = [sampler(generator=batch_generator(args.seed, b, device)).cpu()
               for b in range(-(-args.n_samples // batch))]

@@ -30,7 +30,7 @@ import torch
 
 from ..diffusion import add_noise, make_sampler, make_schedule
 from ..diffusion.schedulers import ScheduleState
-from ..models import UNet2D
+from ..models import UNet2D, empty_unet
 from ..models.vqvae import load_vqvae, make_vq_decode_fn
 from ..utils.ckpt import load_checkpoint, load_meta
 from ..utils.device import resolve_device
@@ -62,7 +62,7 @@ def load_models(model_dir: str, spec, device, keys=("ema_params",)) -> Tuple[Lis
     state = load_checkpoint(model_dir)
     models = []
     for key in keys:
-        model = UNet2D(spec)
+        model = empty_unet(spec)
         model.load_state_dict(state[key])
         models.append(model.to(device).eval())
     return models, load_meta(model_dir)
@@ -76,7 +76,8 @@ def paired_samples(full: UNet2D, removal: UNet2D, cfg, init_noise: torch.Tensor,
     for model in (full, removal):
         sampler = make_sampler(model, cfg.scheduler, tuple(init_noise.shape),
                                device=init_noise.device,
-                               num_inference_steps=num_inference_steps, decode_fn=decode_fn)
+                               num_inference_steps=num_inference_steps, kind="ddim",
+                               decode_fn=decode_fn)
         out.append(sampler(init_noise=init_noise).permute(0, 2, 3, 1))
     return tuple(out)
 

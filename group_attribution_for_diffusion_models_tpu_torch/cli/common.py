@@ -8,9 +8,10 @@ layout, the JSONL provenance row, the tracker, `add_common_args` without
 comes later), and `checkpoint_spec`; for the scoring CLIs, the sample
 directory loader (`load_sample_dir`) and the reference images of FID; and
 for the text-to-image CLIs, the pretrained-tower flags and their loaders
-(`add_sd_pretrained_args`, `sd_text_params`, `sd_base_params`); and the
-removal split of one job (`setup_removal`), which the single-model jobs and
-the ensemble trainer share.
+(`add_sd_pretrained_args`, `sd_text_params`, `sd_base_params`); the class
+conditioning of cli.main's prompt-conditional path (`class_conditioning`);
+and the removal split of one job (`setup_removal`), which the single-model
+jobs and the ensemble trainer share.
 """
 
 from __future__ import annotations
@@ -292,13 +293,94 @@ def add_sd_pretrained_args(parser: argparse.ArgumentParser) -> None:
                              "(required with --text_encoder_weights)")
 
 
-def validated_text_params(weights_path: str, device="cuda", **config):
-    """The CLIP text tower `config` describes, with the weights in
-    `weights_path`; a file for a tower of other shapes exits with the first
-    mismatches."""
-    from ..models.clip_text import load_clip_text
+def validated_text_params(weights_path: str, device="cuda", loader=None, **config):
+    """The text tower `config` describes, with the weights in `weights_path`;
+    a file for a tower of other shapes exits with the first mismatches.
+    `loader` defaults to the CLIP text loader; the prompt-conditional path of
+    cli.main passes `models.ldm_bert.load_ldm_bert`."""
+    if loader is None:
+        from ..models.clip_text import load_clip_text as loader
 
-    return load_clip_text(weights_path, device=device, **config)
+    return loader(weights_path, device=device, **config)
+
+
+def require_wordpiece(kind: str, tokenizer_dir: Optional[str]) -> None:
+    """Exit unless an LDMBert tower has its WordPiece vocab. Without one the
+    JAX CLI tokenizes with the CLIP hash tokenizer, whose ids (BOS/EOS/pad
+    49406/49407) lie outside LDMBert's 30522-row table: its gather fills
+    NaN rows and the run trains on NaN (ROADMAP C4)."""
+    if kind == "ldm_bert" and not tokenizer_dir:
+        raise SystemExit(
+            "--text_encoder_kind ldm_bert needs --tokenizer_dir (a directory with "
+            "LDMBert's WordPiece vocab.txt): the CLIP hash tokenizer's ids lie outside "
+            "its 30522-token vocabulary, which makes the JAX CLI train on NaN")
+
+
+def text_tower_config(kind: str, width: int) -> Dict[str, int]:
+    """The text tower cli.main conditions a U-Net of cross-attention width
+    `width` on, sized as the JAX CLI sizes it: LDMBert by
+    `models.ldm_bert.ldm_bert_spec`; CLIP with 12 layers at 768 and over (2
+    below), 12 heads where they divide the width (else width // 16)."""
+    if kind == "ldm_bert":
+        from ..models.ldm_bert import ldm_bert_spec
+
+        return ldm_bert_spec(width)
+    return dict(width=width, layers=12 if width >= 768 else 2,
+                heads=12 if width % 12 == 0 else max(width // 16, 1))
+
+
+def class_conditioning(kind: str, width: int, num_classes: int,
+                       weights: Optional[str] = None, tokenizer_dir: Optional[str] = None,
+                       random_tower: bool = False, dataset: str = "", device="cuda"):
+    """(tower, tokenize, class embeddings (num_classes, 77, width) on
+    `device`) of the prompt-conditional path (JAX cli/main.py:228-305):
+    `pipelines.ImagenetteCaptioner`'s caption of class i % 10 for each
+    class, tokenized (LDMBert's WordPiece of `tokenizer_dir`; for CLIP its
+    BPE there, else the hash tokenizer) and embedded by the `kind` tower
+    ("ldm_bert" or "clip") of `text_tower_config(kind, width)`, with the
+    weights in `weights` (which needs `tokenizer_dir`), or the seeded random
+    tower with `random_tower`. Exits as the JAX CLI does where neither is
+    given, and on an LDMBert tower without its vocab (`require_wordpiece`)."""
+    import torch
+
+    from ..pipelines import ImagenetteCaptioner
+
+    require_wordpiece(kind, tokenizer_dir)
+    if weights and not tokenizer_dir:
+        raise SystemExit(
+            "--text_encoder_weights needs --tokenizer_dir "
+            "(vocab.txt for ldm_bert, vocab.json + merges.txt for clip): "
+            "hash-tokenized prompts would index the real embedding "
+            "table with arbitrary ids")
+    if not (weights or random_tower):
+        raise SystemExit(
+            f"dataset {dataset!r} is prompt-conditional: pass "
+            "--text_encoder_weights <converted .npz / torch state dict> "
+            "(see cli.convert_weights ldm_bert / clip_text), or opt in "
+            "to a random encoder with --random_text_encoder")
+    config = text_tower_config(kind, width)
+    if kind == "ldm_bert":
+        from ..models.bert_tokenizer import BertWordPieceTokenizer
+        from ..models.ldm_bert import load_ldm_bert as loader
+
+        tokenize = BertWordPieceTokenizer.from_dir(tokenizer_dir)
+    else:
+        from ..models.clip_text import load_clip_text as loader
+        from ..models.clip_text import load_tokenizer
+
+        tokenize = load_tokenizer(tokenizer_dir)
+    if weights:
+        tower = validated_text_params(weights, device, loader=loader, **config)
+        print(f"loaded text encoder weights from {weights}")
+    else:
+        print("WARNING: conditional training with a RANDOM text encoder — "
+              "prompt conditioning carries no semantics (smoke mode)", flush=True)
+        tower = loader(None, device=device, quiet=True, **config)
+    captioner = ImagenetteCaptioner()
+    prompts = captioner([i % captioner.num_classes for i in range(max(num_classes, 1))])
+    ids = torch.from_numpy(np.asarray(tokenize(prompts), np.int64)).to(device)
+    with torch.no_grad():
+        return tower, tokenize, tower(ids)
 
 
 def sd_text_params(args, device="cuda", **config):

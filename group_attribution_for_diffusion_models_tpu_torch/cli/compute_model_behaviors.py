@@ -231,7 +231,7 @@ def main(argv=None) -> Dict:
 
     def generate(state, init):
         lat = sample_loop(unet(state), schedule, sched_spec, shape, device=device,
-                          init_noise=init, num_inference_steps=args.num_inference_steps,
+                          init_noise=init, num_inference_steps=args.num_inference_steps, kind="ddim",
                           encoder_hidden_states=ehs_b, postprocess=False)
         with torch.no_grad():
             imgs = torch.clamp(decode(lat) / 2.0 + 0.5, 0.0, 1.0)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..diffusion.sampling import make_sampler
-from ..models.unet2d import UNet2D
+from ..models.unet2d import empty_unet
 from ..utils.ckpt import load_checkpoint
 from ..utils.device import resolve_device
 from .common import add_common_args, checkpoint_spec, config_for, vq_decode_fn_for
@@ -72,7 +72,7 @@ def main(argv=None):
     cfg = config_for(args.dataset)
     spec = checkpoint_spec(args.load, cfg.unet)
     state = load_checkpoint(args.load)
-    model = UNet2D(spec)
+    model = empty_unet(spec)
     model.load_state_dict(state["ema_params"] if args.use_ema else state["params"])
     model.to(device=device, dtype=dtype).eval()
 
@@ -88,7 +88,7 @@ def main(argv=None):
     shape = (batch, spec.in_channels, spec.sample_size, spec.sample_size)
     sampler = make_sampler(
         model, cfg.scheduler, shape, device=device,
-        num_inference_steps=args.num_inference_steps,
+        num_inference_steps=args.num_inference_steps, kind="ddim",
         decode_fn=vq_decode_fn_for(cfg, args.vqvae_weights, device=device),
     )
 

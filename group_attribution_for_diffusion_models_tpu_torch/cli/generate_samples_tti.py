@@ -106,7 +106,7 @@ def main(argv=None) -> Dict:
                 derived_seed(args.seed, zlib.crc32(style.encode()), b))
             imgs = sample_loop(model, schedule, sched_spec, (batch, ch, size, size),
                                device=device, generator=gen,
-                               num_inference_steps=args.num_inference_steps,
+                               num_inference_steps=args.num_inference_steps, kind="ddim",
                                encoder_hidden_states=ehs_b)
             u8 = (imgs[:, :3] * 255).round().to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
             for i in range(len(u8)):

@@ -48,7 +48,7 @@ from ..attributions.methods.trak import (
 )
 from ..data import create_dataset
 from ..diffusion import make_schedule, sample_loop, sample_with_trajectory
-from ..models import UNet2D
+from ..models import UNet2D, empty_unet
 from ..models.lora import attention_params_filter, probe_sketch_init
 from ..ops.jl_projection import jl_project
 from ..utils.ckpt import load_checkpoint
@@ -92,7 +92,7 @@ def parse_args(argv=None):
 
 
 def _load_model(state, key: str, spec, device) -> UNet2D:
-    model = UNet2D(spec)
+    model = empty_unet(spec)
     model.load_state_dict(state[key])
     return model.to(device).eval()
 
@@ -209,12 +209,13 @@ def main(argv=None):
         images = images.transpose(0, 3, 1, 2)  # NHWC -> NCHW, a view
         labels = dataset.labels
     elif latent:  # the raw final latents
-        raw = partial(sample_loop, postprocess=False)
+        raw = partial(sample_loop, kind="ddim", postprocess=False)
         images = torch.cat(list(sample_batches(raw))).cpu().numpy()
         labels = np.zeros(len(images), np.int64)
     else:
         # [0, 1] pixels back to model space.
-        images = torch.cat([x * 2.0 - 1.0 for x in sample_batches(sample_loop)]).cpu().numpy()
+        ddim = partial(sample_loop, kind="ddim")
+        images = torch.cat([x * 2.0 - 1.0 for x in sample_batches(ddim)]).cpu().numpy()
         labels = np.zeros(len(images), np.int64)
     if args.max_examples:
         images, labels = images[: args.max_examples], labels[: args.max_examples]

@@ -206,7 +206,7 @@ def main(argv=None) -> dict:
         context, labels = unit_emb, group_labels  # each row's unit's caption
         key_name = "train_features"
     else:
-        lat, _ = sample(sample_loop, postprocess=False)
+        lat, _ = sample(sample_loop, kind="ddim", postprocess=False)
         latents = lat.cpu().numpy()
         context, labels = prompt_emb, np.zeros(len(latents), np.int64)
         key_name = "gen_features"

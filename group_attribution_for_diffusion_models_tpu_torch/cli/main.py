@@ -33,10 +33,20 @@ and noise are the per-step loop's, so only the batch composition differs.
 Runs on CUDA unless ``--device cpu`` is given; on CUDA, float32 means
 float32 (TF32 off) and cuDNN runs deterministic algorithms.
 
-Not ported yet: the prompt-conditional path (``imagenette``,
-``synthetic_*_cond``), which needs ``pipelines.ImagenetteCaptioner`` (ROADMAP
-queue A item 9) and the LDMBert tower (item 8); ``--profile_dir`` (item 9).
-Each exits with the item's name.
+Prompt-conditional workloads (``synthetic_*_cond``, ``synthetic_*_ldm_cond``)
+condition the cross-attention U-Net on class captions, as the JAX CLI does:
+`cli.common.class_conditioning` embeds ``pipelines.ImagenetteCaptioner``'s
+caption of each class once, with the ``--text_encoder_kind`` tower
+(``ldm_bert``, the reference's, or ``clip``) of ``--text_encoder_weights``
+or, with ``--random_text_encoder``, the seeded random one; each step
+gathers its batch's embeddings by label (on the device under
+``--scan_chunk``), and the sample grid is conditioned on class i % classes.
+Two of the JAX CLI's runs exit before anything is loaded (ROADMAP C4):
+``ldm_bert`` without ``--tokenizer_dir``, where the JAX CLI trains on NaN
+(the hash tokenizer's ids lie outside LDMBert's vocabulary), and
+``--dataset imagenette``, where the JAX package gives the U-Net 256x256
+pixels but it takes 4x32x32 latents, and no autoencoder exists for them.
+``--profile_dir`` is not ported yet (ROADMAP queue A item 9) and exits.
 
 Usage (smoke, CPU):
     python -m group_attribution_for_diffusion_models_tpu_torch.cli.main \\
@@ -58,7 +68,7 @@ from ..data import batch_iterator, create_dataset
 from ..data.datasets import ArrayDataset
 from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import make_schedule
-from ..models.unet2d import UNet2D, build_unet
+from ..models.unet2d import UNet2D, build_unet, empty_unet
 from ..models.vqvae import make_vq_decode_fn
 from ..parallel.ensemble import _step_seed, derived_seed
 from ..training.state import TrainState, make_optimizer
@@ -69,10 +79,12 @@ from ..utils.jsonl import append_record
 from .common import (
     add_common_args,
     checkpoint_spec,
+    class_conditioning,
     config_for,
     dataset_latents,
     model_output_dir,
     provenance_row,
+    require_wordpiece,
     save_removal_indices,
     setup_removal,
     tracker_for,
@@ -111,13 +123,19 @@ def parse_args(argv=None):
                         choices=["none", "save", "reuse"],
                         help="latent workloads: cache the encoded dataset (save, reuse) "
                              "or encode it in this call only (none)")
-    # The conditional path's flags, kept so rows keep the JAX schema; that
-    # path exits (module docstring).
     parser.add_argument("--text_encoder_kind", type=str, default="ldm_bert",
-                        choices=["ldm_bert", "clip"])
-    parser.add_argument("--text_encoder_weights", type=str, default=None)
-    parser.add_argument("--tokenizer_dir", type=str, default=None)
-    parser.add_argument("--random_text_encoder", action="store_true", default=False)
+                        choices=["ldm_bert", "clip"],
+                        help="conditional text tower: 'ldm_bert', the reference's "
+                             "imagenette encoder, or 'clip'")
+    parser.add_argument("--text_encoder_weights", type=str, default=None,
+                        help="text-tower weights for conditional datasets: the .npz of "
+                             "the JAX package's cli.convert_weights ldm_bert / "
+                             "clip_text, or a torch state-dict file")
+    parser.add_argument("--tokenizer_dir", type=str, default=None,
+                        help="vocab.txt (ldm_bert, always needed) or vocab.json + "
+                             "merges.txt (clip; needed with --text_encoder_weights)")
+    parser.add_argument("--random_text_encoder", action="store_true", default=False,
+                        help="allow a seeded random text tower (smoke runs only)")
     parser.add_argument("--n_inference_samples", type=int, default=None,
                         help="images per in-training EMA sample grid "
                              "(default min(config n_samples, 16))")
@@ -128,28 +146,35 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _unported(args, cfg) -> None:
-    if cfg.unet.conditional:
+def _early_exits(args, cfg) -> None:
+    """The runs that exit before anything is loaded (module docstring)."""
+    if cfg.vqvae is None and cfg.unet.in_channels not in (1, 3):
         raise SystemExit(
-            f"dataset {args.dataset!r} is prompt-conditional: cli.main's conditional path "
-            "needs pipelines.ImagenetteCaptioner (ROADMAP queue A item 9) and the LDMBert "
-            "text tower (queue A item 8), not ported yet")
+            f"dataset {args.dataset!r}: the JAX package gives this workload "
+            f"{cfg.image_size}x{cfg.image_size} pixels, but its U-Net takes "
+            f"{cfg.unet.in_channels}x{cfg.unet.sample_size}x{cfg.unet.sample_size} latents "
+            "and the workload has no autoencoder to make them")
+    if cfg.unet.conditional:
+        require_wordpiece(args.text_encoder_kind, args.tokenizer_dir)
     if args.profile_dir:
         raise SystemExit("--profile_dir: a torch.profiler trace of the training loop is not "
                          "ported yet (ROADMAP queue A item 9)")
 
 
 def save_sample_grid(model: UNet2D, cfg, spec, n: int, step: int, model_dir: str, device,
-                     decode_fn=None) -> str:
+                     decode_fn=None, encoder_hidden_states=None) -> str:
     """DDIM-sample `n` images (GRID_STEPS steps, noise seeded 1_000_000 +
-    step) from `model`, decoded by `decode_fn` for latent workloads, and save
-    them as one PNG grid of up to 4 columns under <model_dir>/samples/."""
+    step) from `model`, decoded by `decode_fn` for latent workloads and
+    conditioned on `encoder_hidden_states` (n, 77, D) for conditional ones,
+    and save them as one PNG grid of up to 4 columns under
+    <model_dir>/samples/."""
     from PIL import Image
 
     shape = (n, spec.in_channels, spec.sample_size, spec.sample_size)
     gen = torch.Generator(device=device).manual_seed(1_000_000 + step)
     imgs = make_sampler(model, cfg.scheduler, shape, device=device,
-                        num_inference_steps=GRID_STEPS, decode_fn=decode_fn)(generator=gen)
+                        num_inference_steps=GRID_STEPS, kind="ddim", decode_fn=decode_fn,
+                        encoder_hidden_states=encoder_hidden_states)(generator=gen)
     imgs = imgs.permute(0, 2, 3, 1).cpu().numpy()
     cols = min(n, 4)
     rows = -(-n // cols)
@@ -178,7 +203,7 @@ def main(argv=None):
     complete: nothing runs and no row is written)."""
     args = parse_args(argv)
     cfg = config_for(args.dataset)
-    _unported(args, cfg)
+    _early_exits(args, cfg)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
@@ -260,26 +285,42 @@ def main(argv=None):
     schedule = make_schedule(cfg.scheduler, device)
     step_fn = make_train_step(tx, schedule, cfg.scheduler, ema_max_decay=args.ema_max_decay,
                               ema_power=args.ema_power,
-                              use_antithetic=not args.no_antithetic)
+                              use_antithetic=not args.no_antithetic,
+                              conditional=spec.conditional)
+    class_emb = None
+    if spec.conditional:
+        _, _, class_emb = class_conditioning(
+            args.text_encoder_kind, spec.cross_attention_dim, int(dataset.labels.max()) + 1,
+            args.text_encoder_weights, args.tokenizer_dir, args.random_text_encoder,
+            args.dataset, device)
     n_grid = args.n_inference_samples or min(cfg.train.n_samples or 16, 16)
     grid_model = None
 
     def sample_grid(step: int) -> None:
         nonlocal grid_model
         if grid_model is None:
-            grid_model = UNet2D(spec).to(device).eval()
+            grid_model = empty_unet(spec, device=device).eval()
         grid_model.load_state_dict(state.state_dicts()[1])
-        save_sample_grid(grid_model, cfg, spec, n_grid, step, model_dir, device, decode_fn)
+        ehs = (None if class_emb is None
+               else class_emb[torch.arange(n_grid, device=device) % class_emb.shape[0]])
+        save_sample_grid(grid_model, cfg, spec, n_grid, step, model_dir, device, decode_fn,
+                         ehs)
+
+    def labels_on_device(labels) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(labels, np.int64)).to(device)
 
     eff_batch = min(batch_size, len(subset))
     if args.scan_chunk:
         images_dev = to_device(subset.images, device).contiguous()
+        if class_emb is not None:
+            labels_dev = labels_on_device(subset.labels)
 
-        def next_batch(step_i: int) -> torch.Tensor:
+        def next_batch(step_i: int):
+            """(images, context) of a step, all on the device."""
             gen = torch.Generator(device=device).manual_seed(
                 derived_seed(_step_seed(args.opt_seed, step_i), SCAN_BATCH_STREAM))
-            return images_dev[torch.randint(0, len(subset), (eff_batch,), generator=gen,
-                                            device=device)]
+            idx = torch.randint(0, len(subset), (eff_batch,), generator=gen, device=device)
+            return images_dev[idx], None if class_emb is None else class_emb[labels_dev[idx]]
     else:
         batches = batch_iterator(subset, eff_batch, seed=args.opt_seed)
         # A resumed run continues the batch order where it stopped (the JAX
@@ -287,8 +328,10 @@ def main(argv=None):
         for _ in range(start_step):
             next(batches)
 
-        def next_batch(step_i: int) -> torch.Tensor:
-            return to_device(next(batches)[0], device)
+        def next_batch(step_i: int):
+            images, labels = next(batches)
+            return to_device(images, device), (
+                None if class_emb is None else class_emb[labels_on_device(labels)])
     tracker = tracker_for(args, f"{args.dataset}_{args.method}")
 
     def sync() -> None:
@@ -311,7 +354,8 @@ def main(argv=None):
                     end = min(end, (done // f + 1) * f)
         for step_i in range(done, end):
             gen = torch.Generator(device=device).manual_seed(_step_seed(args.opt_seed, step_i))
-            metrics = step_fn(state, next_batch(step_i), gen)
+            images, ehs = next_batch(step_i)
+            metrics = step_fn(state, images, gen, encoder_hidden_states=ehs)
         done = end
         if done % args.log_freq == 0 or done == training_steps:
             loss, norm = float(metrics["loss"]), float(metrics.get("grad_norm", float("nan")))

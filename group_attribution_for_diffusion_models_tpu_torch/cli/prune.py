@@ -25,7 +25,7 @@ import torch
 
 from ..data import create_dataset
 from ..diffusion.schedulers import make_schedule
-from ..models.unet2d import UNet2D
+from ..models.unet2d import empty_unet
 from ..pruning import (
     count_params,
     magnitude_importance,
@@ -74,7 +74,7 @@ def main(argv=None):
     elif args.pruner == "random":
         importance = random_importance(params, seed=args.opt_seed)
     else:  # taylor / diff-pruning accumulate gradients over timesteps
-        model = UNet2D(spec)
+        model = empty_unet(spec)
         model.load_state_dict(params)
         importance = taylor_importance(
             model.to(device), make_schedule(cfg.scheduler, device),
@@ -99,7 +99,7 @@ def main(argv=None):
     out_dir = model_output_dir(args.outdir, args.dataset, "prune", "full")
     save_checkpoint(out_dir, 0, new_params, new_params, unet_spec=new_spec)
     # A forward of the pruned model, as the JAX CLI's test inference.
-    pruned = UNet2D(new_spec)
+    pruned = empty_unet(new_spec)
     pruned.load_state_dict(new_params)
     pruned = pruned.to(device).eval()
     x0 = torch.zeros((1, new_spec.in_channels, new_spec.sample_size, new_spec.sample_size),

@@ -45,7 +45,7 @@ from ..attributions.methods.trak import (
 )
 from ..data import create_dataset
 from ..diffusion import make_schedule, sample_loop
-from ..models import UNet2D
+from ..models import empty_unet
 from ..models.lora import attention_params_filter, probe_sketch_init
 from ..utils.ckpt import load_checkpoint
 from ..utils.device import resolve_device
@@ -130,7 +130,7 @@ def main(argv=None):
             "(ROADMAP C4)")
     spec = checkpoint_spec(args.load, cfg.unet)
     state = load_checkpoint(args.load)
-    model, ema = UNet2D(spec), UNet2D(spec)
+    model, ema = empty_unet(spec), empty_unet(spec)
     model.load_state_dict(state["params"])
     ema.load_state_dict(state["ema_params"])
     model, ema = model.to(device).eval(), ema.to(device).eval()
@@ -144,7 +144,7 @@ def main(argv=None):
     gen_images = (sample_loop(
         ema, schedule, cfg.scheduler, shape, device=device,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        num_inference_steps=args.num_inference_steps) * 2.0 - 1.0).cpu().numpy()
+        num_inference_steps=args.num_inference_steps, kind="ddim") * 2.0 - 1.0).cpu().numpy()
     del ema
 
     def sync() -> None:

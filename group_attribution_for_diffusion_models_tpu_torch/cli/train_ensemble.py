@@ -62,7 +62,7 @@ from ..config import constants
 from ..data import create_dataset
 from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import add_noise, make_schedule
-from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet
+from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet, empty_unet
 from ..models.vqvae import make_vq_decode_fn
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
 from ..training.state import TrainState, make_optimizer, unstack_state
@@ -393,7 +393,7 @@ def main(argv=None):
     states = [unstack_state(stacked, m) for m in range(len(seeds))]
     del stacked
 
-    scratch = UNet2D(spec, compute_dtype=compute_dtype).to(device).eval()
+    scratch = empty_unet(spec, device=device, compute_dtype=compute_dtype).eval()
     eval_losses = None
     if args.eval_loss:
         # The probe, its timesteps and its noise come from a CPU generator,
@@ -428,7 +428,7 @@ def main(argv=None):
             sampler = make_sampler(_ema_model(scratch, state), cfg.scheduler, shape,
                                    device=device,
                                    num_inference_steps=args.num_inference_steps,
-                                   decode_fn=decode_fn)
+                                   kind="ddim", decode_fn=decode_fn)
             gen = torch.Generator(device=device).manual_seed(derived_seed(args.opt_seed, m))
             samples.append(sampler(generator=gen))
         samples = torch.stack(samples).cpu().numpy()

@@ -50,7 +50,7 @@ from ..data.datasets import ArrayDataset
 from ..diffusion.sampling import make_sampler
 from ..diffusion.schedulers import ScheduleState, add_noise, antithetic_timesteps, make_schedule
 from ..models.lora import lora_collection, lora_init, lora_merge
-from ..models.unet2d import UNet2D
+from ..models.unet2d import UNet2D, empty_unet
 from ..models.vqvae import make_vq_decode_fn
 from ..training.state import TrainState, make_optimizer
 from ..training.train import make_train_step
@@ -166,7 +166,7 @@ def main(argv=None):
 
     spec = checkpoint_spec(args.load, cfg.unet)
     ckpt = load_checkpoint(args.load)
-    model = UNet2D(spec)
+    model = empty_unet(spec)
     model.load_state_dict(ckpt["params"])
     model.to(device)
     schedule = make_schedule(cfg.scheduler, device)
@@ -221,7 +221,7 @@ def main(argv=None):
         def sample(state_dict) -> torch.Tensor:
             model.load_state_dict(state_dict)
             return make_sampler(model, cfg.scheduler, shape, device=device,
-                                num_inference_steps=args.num_inference_steps,
+                                num_inference_steps=args.num_inference_steps, kind="ddim",
                                 decode_fn=decode_fn)(init_noise=noise).permute(0, 2, 3, 1)
 
         t0 = time.perf_counter()

@@ -9,4 +9,5 @@ from .schedulers import (  # noqa: F401
     make_betas,
     make_schedule,
     pred_original_sample,
+    velocity_target,
 )

@@ -3,7 +3,7 @@
 Port of the JAX package's ``diffusion/schedulers.py``. Schedule tables are
 built once on the host (numpy, float32), so every device gets the same
 tables, into a `ScheduleState` of tensors on the caller's device;
-`add_noise`, `ddpm_step` and `ddim_step` are pure functions of their tensor
+`add_noise`, `velocity_target`, `ddpm_step` and `ddim_step` are pure functions of their tensor
 arguments, with noise always supplied by the caller, and
 `antithetic_timesteps` draws from the caller's `torch.Generator`.
 
@@ -74,6 +74,14 @@ def add_noise(
     return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
 
 
+def velocity_target(
+    state: ScheduleState, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor
+) -> torch.Tensor:
+    """v-prediction target sqrt(acp) eps - sqrt(1-acp) x0."""
+    acp = _extract(state.alphas_cumprod, t, x0.ndim)
+    return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * x0
+
+
 def antithetic_timesteps(
     generator: torch.Generator, batch: int, num_train_timesteps: int, device=None
 ) -> torch.Tensor:
@@ -111,20 +119,34 @@ def ddpm_step(
     t: torch.Tensor,
     x_t: torch.Tensor,
     noise: torch.Tensor,
+    t_prev: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One ancestral DDPM reverse step x_t -> x_{t-1}.
+    """One ancestral DDPM reverse step x_t -> x_{t_prev}.
 
     `noise` is pre-sampled gaussian noise of x_t's shape (the caller owns the
     generator). Variance follows diffusers fixed_small / fixed_large with the
-    t==0 no-noise convention.
+    t==0 no-noise convention. Without `t_prev` the step goes to t - 1 with
+    the tables' alpha and beta at t, as the JAX package's ``ddpm_step``
+    does at every timestep count. With `t_prev` (negative: the end of the
+    chain, alpha_cumprod 1) alpha and beta are the ones of the whole stride,
+    alpha_cumprod[t] / alpha_cumprod[t_prev] and one minus it, as diffusers'
+    DDPMScheduler steps a grid of fewer inference steps; at t_prev = t - 1
+    the two agree but for rounding.
     """
     ndim = x_t.ndim
     acp = state.alphas_cumprod
     acp_t = _extract(acp, t, ndim)
-    # alpha_cumprod at t-1 (1.0 when t == 0).
-    acp_prev = _extract(torch.cat([acp.new_ones(1), acp[:-1]]), t, ndim)
-    beta_t = _extract(state.betas, t, ndim)
-    alpha_t = _extract(state.alphas, t, ndim)
+    if t_prev is None:
+        # alpha_cumprod at t-1 (1.0 when t == 0).
+        acp_prev = _extract(torch.cat([acp.new_ones(1), acp[:-1]]), t, ndim)
+        beta_t = _extract(state.betas, t, ndim)
+        alpha_t = _extract(state.alphas, t, ndim)
+    else:
+        acp_prev = torch.where((t_prev >= 0).reshape((-1,) + (1,) * (ndim - 1)),
+                               _extract(acp, torch.clamp(t_prev, min=0), ndim),
+                               torch.ones((1,) * ndim, dtype=acp.dtype, device=acp.device))
+        alpha_t = acp_t / acp_prev
+        beta_t = 1.0 - alpha_t
 
     x0 = pred_original_sample(state, model_out, t, x_t, spec.prediction_type)
     if spec.clip_sample:

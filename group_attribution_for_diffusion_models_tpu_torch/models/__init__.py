@@ -10,4 +10,4 @@ from .layers import (  # noqa: F401
     Upsample,
     sinusoidal_embedding,
 )
-from .unet2d import UNet2D, build_unet  # noqa: F401
+from .unet2d import UNet2D, build_unet, empty_unet  # noqa: F401

@@ -1,6 +1,6 @@
 """Weight bridges between the JAX package's param trees and the port: the
 UNet2D (unconditional and cross-attention), its LoRA trees, and, at the end
-of the file, the VQ-VAE, the KL VAE and the CLIP text tower.
+of the file, the VQ-VAE, the KL VAE and the CLIP and LDMBert text towers.
 
 The port's UNet2D state dict uses the diffusers v0.24 UNet2DModel /
 UNet2DConditionModel keys, so these are the port's own copies of the JAX
@@ -406,4 +406,45 @@ def clip_text_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
         else:
             suffix, t = _torch_leaf(leaf, v)
             out[f"{_clip_module(path)}.{suffix}"] = t
+    return out
+
+
+# --- LDMBert text tower (diffusers LDMBertModel) -----------------------------
+#
+#   diffusers (under model.) / port              JAX LDMBertEncoder
+#   embed_tokens.weight                          embed_tokens/embedding
+#   embed_positions.weight                       embed_positions
+#   layers.I.self_attn.{q,k,v,out}_proj.*        layer_I/self_attn/{q,k,v,out}_proj/*
+#   layers.I.{self_attn,final}_layer_norm.*      layer_I/{self_attn,final}_layer_norm/*
+#   layers.I.fc{1,2}.*                           layer_I/fc{1,2}/*
+#   layer_norm.*                                 layer_norm/*
+
+
+def _ldm_bert_module(path: Tuple[str, ...]) -> str:
+    if path in (("embed_tokens",), ("layer_norm",)):
+        return path[0]
+    m = re.match(r"layer_(\d+)$", path[0])
+    if m:
+        layer = f"layers.{m.group(1)}"
+        if len(path) == 3 and path[1] == "self_attn":
+            return f"{layer}.self_attn.{path[2]}"
+        if len(path) == 2 and path[1] in ("self_attn_layer_norm", "final_layer_norm",
+                                          "fc1", "fc2"):
+            return f"{layer}.{path[1]}"
+    raise ValueError(f"unexpected LDMBert path {'/'.join(path)!r}")
+
+
+def ldm_bert_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """JAX LDMBertEncoder param tree (or the ``.npz`` of cli.convert_weights
+    ldm_bert, unflattened) -> the port's LDMBertEncoder state dict, f32."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf, v in _flatten(params):
+        if path == () and leaf == "embed_positions":
+            out["embed_positions.weight"] = torch.from_numpy(np.array(v, dtype=np.float32))
+        elif leaf == "embedding":
+            out[f"{_ldm_bert_module(path)}.weight"] = torch.from_numpy(
+                np.array(v, dtype=np.float32))
+        else:
+            suffix, t = _torch_leaf(leaf, v)
+            out[f"{_ldm_bert_module(path)}.{suffix}"] = t
     return out

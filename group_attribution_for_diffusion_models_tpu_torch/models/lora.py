@@ -14,15 +14,19 @@ the JAX function) gives heterogeneous ranks for free. `stack_lora_trees`
 puts M members' trees of one shape on a leading member axis, the stacked
 side branch `unet2d.members_forward` runs over one frozen base. A tree is saved as
 the JAX CLI's ``lora_weights.npz`` (``<JAX path>::down`` / ``::up``), so one
-file serves both packages (`save_lora_npz`, `load_lora_npz`).
+file serves both packages (`save_lora_npz`, `load_lora_npz`); the same keys
+in a safetensors file (`save_lora_safetensors`, `load_lora_safetensors`;
+the ``safetensors`` package is imported on use, and a call without it
+fails naming it). `lora_plus_optimizer` is LoRA+: AdamW with the up
+matrices at ``plus_ratio`` times the down matrices' rate.
 
 Also the TRAK slice's pieces: the probe sketch (`probe_sketch_init`) and
 the attention-projection restriction (`attention_params_filter`).
-`lora_plus_optimizer` and the safetensors I/O are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -226,5 +230,80 @@ def load_lora_npz(path: str, device="cpu") -> LoraTree:
         for key in store.files:
             name, leaf = key.rsplit("::", 1)
             tree.setdefault(name, {})[leaf] = store[key]
+    return {name: {leaf: v.to(device) for leaf, v in ab.items()}
+            for name, ab in lora_tree_from_jax(tree).items()}
+
+
+@dataclasses.dataclass
+class LoraPlusOptimizer:
+    """Two AdamW optimizers over a LoRA tree: `down` for the down matrices,
+    `up` for the up ones (the JAX package's ``optax.multi_transform`` by
+    leaf name). `init(tree)` and `update(grads, state, tree)` take trees of
+    the same keys; `update` steps the tree's tensors in place."""
+
+    down: "Optimizer"
+    up: "Optimizer"
+
+    def init(self, tree: Mapping) -> Dict[str, object]:
+        return {leaf: getattr(self, leaf).init([ab[leaf] for ab in tree.values()])
+                for leaf in ("down", "up")}
+
+    def update(self, grads: Mapping, state: Mapping, tree: Mapping) -> None:
+        for leaf in ("down", "up"):
+            getattr(self, leaf).update([grads[name][leaf] for name in tree], state[leaf],
+                                       [ab[leaf] for ab in tree.values()])
+
+
+def lora_plus_optimizer(lr: float, plus_ratio: float = 16.0, weight_decay: float = 0.0,
+                        lr_schedule: str = "constant", total_steps: int = 0
+                        ) -> LoraPlusOptimizer:
+    """LoRA+ (Hayou et al. 2024): the up (B) matrices train at `plus_ratio`
+    times the down (A) matrices' learning rate, each under a constant or a
+    cosine decay over `total_steps` (``optax.cosine_decay_schedule``), as
+    the reference's LoRA unlearning path configures it (reference
+    unconditional_generation/unlearn.py:404-424). AdamW without a clip, as
+    ``optax.adamw``."""
+    from ..training.state import Optimizer, make_schedule_fn
+
+    def make(rate: float) -> Optimizer:
+        return Optimizer(name="adamw", schedule=make_schedule_fn(
+            rate, "cosine" if lr_schedule == "cosine" else "constant", total_steps),
+            weight_decay=weight_decay, grad_clip_norm=None)
+
+    return LoraPlusOptimizer(down=make(lr), up=make(lr * plus_ratio))
+
+
+def _safetensors(what: str):
+    try:
+        import safetensors.numpy as st
+    except ImportError:
+        raise ImportError(f"{what} needs the 'safetensors' package, which is not "
+                          "installed") from None
+    return st
+
+
+def save_lora_safetensors(path: str, lora_tree: Mapping) -> None:
+    """Write a tree as the JAX package's ``save_lora_safetensors`` does:
+    ``<JAX module path>::down`` / ``::up`` f32 arrays (the reference's
+    pytorch_lora_weights.safetensors format, reference
+    train_text_to_image_lora.py:1366-1371)."""
+    from .convert_diffusers import lora_tree_to_jax
+
+    st = _safetensors("save_lora_safetensors")
+    flat = {f"{name}::{leaf}": np.ascontiguousarray(v, dtype=np.float32)
+            for name, ab in lora_tree_to_jax(lora_tree).items() for leaf, v in ab.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    st.save_file(flat, path)
+
+
+def load_lora_safetensors(path: str, device="cpu") -> LoraTree:
+    """A LoRA safetensors file of either package as the port's tree, f32 on
+    `device`."""
+    from .convert_diffusers import lora_tree_from_jax
+
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in _safetensors("load_lora_safetensors").load_file(path).items():
+        name, leaf = key.rsplit("::", 1)
+        tree.setdefault(name, {})[leaf] = v
     return {name: {leaf: v.to(device) for leaf, v in ab.items()}
             for name, ab in lora_tree_from_jax(tree).items()}

@@ -292,6 +292,16 @@ def members_forward(model: UNet2D, weights: Mapping[str, torch.Tensor], x: torch
         model._members = None
 
 
+def empty_unet(spec: UNetSpec, device="cpu", **kwargs) -> UNet2D:
+    """A UNet2D on `device` whose parameters hold no values yet: nothing is
+    drawn, for a model whose every weight `load_state_dict` fills next (a
+    CelebA U-Net's initialisation takes seconds on the CPU). `kwargs` go to
+    UNet2D."""
+    with torch.device("meta"):
+        model = UNet2D(spec, **kwargs)
+    return model.to_empty(device=device)
+
+
 def build_unet(spec: UNetSpec, seed: int, remat: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                remat_policy: Optional[str] = None, device="cpu") -> UNet2D:

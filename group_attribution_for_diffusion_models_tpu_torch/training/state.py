@@ -11,14 +11,18 @@ updates it in one pass; its clip takes each member's own global norm.
 
 `make_optimizer` builds the chain the JAX package builds with optax: global-
 norm clip, an optional sign flip (``maximize``, gradient-ascent unlearning),
-then Adam or AdamW under a constant, warmup or warmup-cosine schedule. It
-follows optax's formulas, not ``torch.optim``'s: the clip scales by
-max_norm / ||g|| with no epsilon (``clip_grad_norm_`` adds 1e-6 to the norm),
-the update is mu_hat / (sqrt(nu_hat) + eps), and a schedule is read at the
-step count before it increments (warmup step 0 has lr 0). Schedule values
-and bias corrections are computed on the host in float32, as optax computes
-them on the device. Adafactor and 8-bit Adam come with the tiers that use
-them.
+then Adam, AdamW, Adafactor (``optax.adafactor`` at its defaults) or 8-bit
+Adam (`training.quantized`) under a constant, warmup or warmup-cosine
+schedule. It follows optax's formulas, not ``torch.optim``'s: the clip
+scales by max_norm / ||g|| with no epsilon (``clip_grad_norm_`` adds 1e-6 to
+the norm), the update is mu_hat / (sqrt(nu_hat) + eps), and a schedule is
+read at the step count before it increments (warmup step 0 has lr 0; 8-bit
+Adam reads it after, as its JAX function does). Schedule values and bias
+corrections are computed on the host in float32, as optax computes them on
+the device. Each optimizer's state names its tensors (`slots`), which
+checkpoints save and `stack_states` stacks. With a member axis, Adafactor
+factors and clips each member's tensor alone and 8-bit Adam quantizes it in
+blocks of its own, as ``jax.vmap`` of the optax update does.
 
 EMA semantics match diffusers EMAModel (`ema_decay_schedule`); the train
 step calls it with use_warmup=False, as the JAX step and the reference do:
@@ -31,7 +35,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,10 +115,101 @@ class OptState:
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
+    def slots(self) -> Dict[str, List[torch.Tensor]]:
+        return {"mu": self.mu, "nu": self.nu}
+
+
+ADAFACTOR_DECAY, ADAFACTOR_EPS = 0.8, 1e-30  # optax.adafactor's defaults
+ADAFACTOR_MIN_DIM, ADAFACTOR_CLIP, ADAFACTOR_MIN_SCALE = 128, 1.0, 1e-3
+
+
+@dataclasses.dataclass
+class FactoredState:
+    """Adafactor's second moments a parameter: row and column statistics of
+    a factored tensor ((1,) tensors for v), or the full v of one that is not
+    ((1,) tensors for the rows and columns), as optax's FactoredState."""
+
+    count: int
+    v_row: List[torch.Tensor]
+    v_col: List[torch.Tensor]
+    v: List[torch.Tensor]
+
+    def slots(self) -> Dict[str, List[torch.Tensor]]:
+        return {"v_row": self.v_row, "v_col": self.v_col, "v": self.v}
+
+
+def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: (second largest, largest) axis of a
+    tensor of at least 2 axes whose second largest is at least
+    ADAFACTOR_MIN_DIM, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _adafactor_init(params: List[torch.Tensor], members: int) -> FactoredState:
+    state = FactoredState(0, [], [], [])
+    lead = (members,) if members else ()
+    for p in params:
+        shape = tuple(p.shape[1:] if members else p.shape)
+        dims = factored_dims(shape)
+        one = p.new_zeros(lead + (1,))
+        if dims is None:
+            state.v_row.append(one)
+            state.v_col.append(one.clone())
+            state.v.append(torch.zeros_like(p))
+        else:
+            d1, d0 = dims
+            state.v_row.append(p.new_zeros(lead + tuple(np.delete(shape, d0))))
+            state.v_col.append(p.new_zeros(lead + tuple(np.delete(shape, d1))))
+            state.v.append(one)
+    return state
+
+
+def _adafactor_update(grads: List[torch.Tensor], state: FactoredState,
+                      params: List[torch.Tensor], schedule: Callable[[int], np.float32],
+                      members: int) -> None:
+    """optax.adafactor(schedule) at its defaults, in place: factored RMS
+    scaling, the block-RMS clip at 1, the learning rate, the scale by each
+    parameter block's RMS (at least 1e-3), descent. `members` > 0: each
+    member's slice of a tensor is its own block."""
+    decay = float(_F32(1.0) - _F32(state.count + 1) ** _F32(-ADAFACTOR_DECAY))
+    lr = float(_F32(schedule(state.count)))
+    k = 1 if members else 0  # the first axis of a member's own tensor
+
+    def block_rms(x: torch.Tensor) -> torch.Tensor:
+        if not members:
+            return torch.sqrt(torch.mean(x * x))
+        return torch.sqrt(torch.mean((x * x).flatten(1), dim=1)).view(
+            (-1,) + (1,) * (x.ndim - 1))
+
+    for i, (g, p) in enumerate(zip(grads, params)):
+        dims = factored_dims(tuple(p.shape[k:]))
+        g2 = g * g + ADAFACTOR_EPS
+        if dims is None:
+            v = state.v[i].mul_(decay).add_((1.0 - decay) * g2)
+            u = g * v ** -0.5
+        else:
+            d1, d0 = dims[0] + k, dims[1] + k
+            v_row = state.v_row[i].mul_(decay).add_((1.0 - decay) * g2.mean(d0))
+            v_col = state.v_col[i].mul_(decay).add_((1.0 - decay) * g2.mean(d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)) ** -0.5
+            u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+        u = u / torch.clamp(block_rms(u) / ADAFACTOR_CLIP, min=1.0)
+        rms = block_rms(p)
+        scale = torch.where(rms <= ADAFACTOR_MIN_SCALE, torch.full_like(rms, ADAFACTOR_MIN_SCALE),
+                            rms)
+        p.sub_((lr * u) * scale)
+    state.count += 1
+
 
 @dataclasses.dataclass
 class Optimizer:
-    """clip -> [scale(-1)] -> adam/adamw -> scale by -lr(count), as optax
+    """clip -> [scale(-1)] -> adam/adamw/adafactor/adam8bit, as optax
     chains them. `update` applies the update to the parameters in place,
     where optax returns it."""
 
@@ -124,7 +219,16 @@ class Optimizer:
     grad_clip_norm: Optional[float] = 1.0
     maximize: bool = False
 
-    def init(self, params: List[torch.Tensor]) -> OptState:
+    def init(self, params: List[torch.Tensor], members: int = 0):
+        """The zero state of `params`; `members` > 0 when they carry a
+        leading member axis of that size (Adafactor and 8-bit Adam lay out
+        their state by member)."""
+        if self.name == "adafactor":
+            return _adafactor_init(params, members)
+        if self.name == "adam8bit":
+            from .quantized import adam8bit_init
+
+            return adam8bit_init(params, members)
         return OptState(
             count=0,
             mu=[torch.zeros_like(p) for p in params],
@@ -156,6 +260,14 @@ class Optimizer:
             torch._foreach_mul_(grads, mul)
         if self.maximize:
             torch._foreach_neg_(grads)
+        if self.name == "adafactor":
+            _adafactor_update(grads, state, params, self.schedule, members)
+            return norm
+        if self.name == "adam8bit":
+            from .quantized import adam8bit_update
+
+            adam8bit_update(grads, state, params, self.schedule, members)
+            return norm
         torch._foreach_mul_(state.mu, ADAM_B1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - ADAM_B1)
         torch._foreach_mul_(state.nu, ADAM_B2)
@@ -196,10 +308,11 @@ def make_optimizer(
     warmup_steps: int = 0,
     maximize: bool = False,
 ) -> Optimizer:
-    """The optimizer of the JAX package's `make_optimizer` for `adam` and
-    `adamw` (its `flat` option only regroups optax's leaves: not needed)."""
-    if name not in ("adam", "adamw"):
-        raise ValueError(f"unknown or not yet ported optimizer {name!r}")
+    """The optimizer of the JAX package's `make_optimizer`: `adam`,
+    `adamw`, `adafactor` or `adam8bit` (its `flat` option only regroups
+    optax's leaves: not needed). Weight decay is AdamW's alone."""
+    if name not in ("adam", "adamw", "adafactor", "adam8bit"):
+        raise ValueError(f"unknown optimizer {name!r}")
     return Optimizer(
         name=name,
         schedule=make_schedule_fn(lr, lr_schedule, total_steps, warmup_steps),
@@ -277,13 +390,12 @@ def stack_states(states: Sequence[TrainState]) -> EnsembleState:
     def stack(lists):
         return [torch.stack(xs) for xs in zip(*lists)]
 
+    opt = first.opt_state
+    slots = {name: stack([s.opt_state.slots()[name] for s in states]) for name in opt.slots()}
     return EnsembleState(
         model=copy.deepcopy(first.model).to("meta"), params=params, buffers=buffers,
         ema=stack([s.ema for s in states]),
-        opt_state=OptState(count=first.opt_state.count,
-                           mu=stack([s.opt_state.mu for s in states]),
-                           nu=stack([s.opt_state.nu for s in states])),
-        step=first.step)
+        opt_state=type(opt)(count=opt.count, **slots), step=first.step)
 
 
 @torch.no_grad()
@@ -295,11 +407,10 @@ def unstack_state(stacked: EnsembleState, member: int) -> TrainState:
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         t.copy_(weights[name][member])
     opt = stacked.opt_state
+    slots = {name: [x[member].clone() for x in xs] for name, xs in opt.slots().items()}
     return TrainState(
         model=model, ema=[e[member].clone() for e in stacked.ema],
-        opt_state=OptState(count=opt.count, mu=[x[member].clone() for x in opt.mu],
-                           nu=[x[member].clone() for x in opt.nu]),
-        step=stacked.step)
+        opt_state=type(opt)(count=opt.count, **slots), step=stacked.step)
 
 
 def init_ensemble_state(params: Optional[nn.Module], tx: Optimizer, num_members: int,

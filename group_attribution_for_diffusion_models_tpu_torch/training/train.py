@@ -7,7 +7,9 @@ weighted per example), value and gradient, global-norm clip, Adam, then the
 EMA with its decay at step + 1. Where the JAX step is a
 pure function of (state, batch, key), this one updates the `TrainState` in
 place and draws its timesteps and noise from a `torch.Generator`; both can
-be injected instead, so tests give the two packages the same draws.
+be injected instead, so tests give the two packages the same draws. A
+conditional step (``conditional=True``, the prompt-conditional path of
+cli.main) passes each batch's context to the cross-attention U-Net.
 
 `make_members_step` is the step of M stacked members (an `EnsembleState`),
 the counterpart of ``jax.vmap(train_step)``: `members_loss` runs them
@@ -78,14 +80,18 @@ def members_loss(
 
 def make_train_step(tx: Optimizer, schedule: ScheduleState, spec: SchedulerSpec,
                     ema_max_decay: float = EMA_MAX_DECAY, ema_inv_gamma: float = 1.0,
-                    ema_power: float = 0.75, use_antithetic: bool = True):
+                    ema_power: float = 0.75, use_antithetic: bool = True,
+                    conditional: bool = False):
     """The train step for an optimizer/schedule pair:
     `train_step(state, images, generator=None, timesteps=None, noise=None,
-    loss_weights=None) -> {"loss", "grad_norm"}` (0-d tensors; the norm is
-    the gradient's before the clip, reported when the optimizer clips).
-    Timesteps and noise not given are drawn from `generator`, timesteps
-    first: antithetic pairs, or uniform without `use_antithetic`.
-    `loss_weights` (B,) weight each example's MSE. The EMA decays with
+    loss_weights=None, encoder_hidden_states=None) -> {"loss", "grad_norm"}`
+    (0-d tensors; the norm is the gradient's before the clip, reported when
+    the optimizer clips). Timesteps and noise not given are drawn from
+    `generator`, timesteps first: antithetic pairs, or uniform without
+    `use_antithetic`. `loss_weights` (B,) weight each example's MSE. A
+    `conditional` step passes `encoder_hidden_states` (B, M, D), the
+    batch's context, to the U-Net (the JAX step's ``conditional=True``);
+    an unconditional one ignores it, as the JAX step does. The EMA decays with
     `ema_decay_schedule(step, ema_max_decay, False, ema_inv_gamma,
     ema_power)`, the JAX step's call: without warm-up, inverse gamma and
     power have no effect. The clipped gradients stay in the parameters'
@@ -98,6 +104,7 @@ def make_train_step(tx: Optimizer, schedule: ScheduleState, spec: SchedulerSpec,
         timesteps: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         loss_weights: Optional[torch.Tensor] = None,
+        encoder_hidden_states: Optional[torch.Tensor] = None,
     ):
         batch, device = images.shape[0], images.device
         if timesteps is None and use_antithetic:
@@ -112,7 +119,10 @@ def make_train_step(tx: Optimizer, schedule: ScheduleState, spec: SchedulerSpec,
         params = state.params
         for p in params:
             p.grad = None
-        loss = diffusion_loss(state.model, schedule, images, noise, timesteps, loss_weights)
+        model = state.model
+        if conditional:
+            model = functools.partial(state.model, encoder_hidden_states=encoder_hidden_states)
+        loss = diffusion_loss(model, schedule, images, noise, timesteps, loss_weights)
         loss.backward()
         missing = [n for n, p in state.model.named_parameters() if p.grad is None]
         if missing:

@@ -1,8 +1,9 @@
 """Checkpoints in the port's own format.
 
 ``<model_dir>/ckpt_steps_%08d/state.pt`` holds ``{"params", "ema_params",
-"step"}`` (two UNet2D state dicts and an int), and ``"opt_state"`` (Adam's
-count and moments) when a trainer saves it to resume, and ``meta.json``
+"step"}`` (two UNet2D state dicts and an int), and ``"opt_state"`` (the
+optimizer's count and its state by slot name: Adam's ``mu`` and ``nu``)
+when a trainer saves it to resume, and ``meta.json``
 beside it has the JAX package's schema (step, total_steps_time,
 remaining_idx, removed_idx, unet_spec). Latest-checkpoint discovery is the
 same directory-name scan; `resume_or_init` restarts a run from its newest
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config.registry import UNetSpec
-from ..training.state import OptState, TrainState
+from ..training.state import TrainState
 
 
 def weights_tag(weights_path: Optional[str], seed: int) -> str:
@@ -66,7 +67,7 @@ def save_checkpoint(
     removed_idx: Optional[np.ndarray] = None,
     total_steps_time: float = 0.0,
     unet_spec: Optional[UNetSpec] = None,
-    opt_state: Optional[OptState] = None,
+    opt_state=None,
 ) -> str:
     """Save params + EMA params (+ the optimizer state) + provenance; returns
     the checkpoint path."""
@@ -80,9 +81,8 @@ def save_checkpoint(
         "step": int(step),
     }
     if opt_state is not None:
-        state["opt_state"] = {"count": opt_state.count,
-                              "mu": [t.detach().cpu() for t in opt_state.mu],
-                              "nu": [t.detach().cpu() for t in opt_state.nu]}
+        state["opt_state"] = {"count": opt_state.count, **{
+            name: [t.detach().cpu() for t in ts] for name, ts in opt_state.slots().items()}}
     torch.save(state, os.path.join(path, "state.pt"))
     meta: Dict[str, Any] = {"step": int(step), "total_steps_time": total_steps_time}
     if remaining_idx is not None:
@@ -157,8 +157,8 @@ def resume_or_init(model_dir: str, init_state: TrainState) -> Tuple[TrainState, 
         if "opt_state" in ckpt:
             saved = ckpt["opt_state"]
             init_state.opt_state.count = int(saved["count"])
-            for dst, src in zip(init_state.opt_state.mu + init_state.opt_state.nu,
-                                saved["mu"] + saved["nu"]):
-                dst.copy_(src)
+            for name, dsts in init_state.opt_state.slots().items():
+                for dst, src in zip(dsts, saved[name]):
+                    dst.copy_(src)
     init_state.step = int(ckpt["step"])
     return init_state, meta, True

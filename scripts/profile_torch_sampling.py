@@ -125,7 +125,7 @@ def main() -> int:
 
     model.to(device=dev, dtype=dtype)
     sampler = make_sampler(model, cfg.scheduler, (BATCH, 3, 32, 32), device=dev,
-                           num_inference_steps=PROFILED_STEPS)
+                           num_inference_steps=PROFILED_STEPS, kind="ddim")
     gen = torch.Generator(device=dev)
     sampler(generator=gen.manual_seed(0))  # warm-up
     torch.cuda.synchronize()

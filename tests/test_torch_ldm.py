@@ -287,7 +287,7 @@ def test_sample_loop_with_the_vq_decoder_matches_jax(tmp_path):
     model.eval()
     got = sample_loop(model, make_schedule(SchedulerSpec()), SchedulerSpec(),
                       (2, 3, spec.sample_size, spec.sample_size), device="cpu",
-                      init_noise=_nchw(noise), num_inference_steps=3,
+                      init_noise=_nchw(noise), num_inference_steps=3, kind="ddim",
                       decode_fn=make_vq_decode_fn(CFG.vqvae, path, device="cpu"))
     assert got.shape == (2, 3, 16, 16) and want.shape == (2, 16, 16, 3)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-4, rtol=0)

@@ -15,7 +15,8 @@ against the JAX package, on the CPU.
 * The CLI: its row and checkpoint meta against the JAX CLI's (keys; removal
   indices bit for bit), resume against an uninterrupted run (bit for bit on
   the CPU), ``--ckpt_freq 0``, prune_fine_tune's pruned spec and weights, the
-  latent path on a tiny VQ config, and the paths not ported, which exit.
+  latent path on a tiny VQ config, and ``--profile_dir``, not ported, which
+  exits (the prompt-conditional path: tests/test_torch_cond_main.py).
 """
 
 import dataclasses
@@ -306,7 +307,6 @@ def test_latent_path_on_a_tiny_vq_config(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--dataset", "synthetic_64x8_cond"], "ImagenetteCaptioner.*item 9.*LDMBert.*item 8"),
     (["--dataset", DATASET, "--profile_dir", "/tmp/p"], "item 9"),
 ])
 def test_unported_paths_exit_with_their_item(tmp_path, extra, item):

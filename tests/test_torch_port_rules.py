@@ -77,7 +77,15 @@ LOCAL_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("module", SCORING_SLICE + SINGLE_MODEL_SLICE + LOCAL_SLICE)
+# The prompt-conditional path of cli.main and the text-to-image leftovers.
+COND_SLICE = [
+    "models/bert_tokenizer.py", "models/ldm_bert.py", "pipelines.py",
+    "training/quantized.py", "cli/create_metadata.py",
+]
+
+
+@pytest.mark.parametrize("module", SCORING_SLICE + SINGLE_MODEL_SLICE + LOCAL_SLICE
+                         + COND_SLICE)
 def test_scoring_slice_modules_import_no_jax(module):
     path = os.path.join(PORT, module)
     assert path in _port_files()

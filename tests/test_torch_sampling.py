@@ -45,7 +45,7 @@ def test_ddim_sample_loop_matches_jax():
     noise = np.array(jax.random.normal(key_init, (b, s, s, c), dtype=jnp.float32))
 
     sampler = make_sampler(model, cfg.scheduler, (b, c, s, s), device="cpu",
-                           num_inference_steps=5)
+                           num_inference_steps=5, kind="ddim")
     got = sampler(init_noise=torch.from_numpy(noise).permute(0, 3, 1, 2))
     assert got.shape == (b, c, s, s)
     got = got.permute(0, 2, 3, 1).numpy()

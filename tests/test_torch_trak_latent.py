@@ -203,7 +203,7 @@ def test_grad_features_cli_on_a_latent_workload(ldm, tmp_path):
     ema_model.load_state_dict(ema)
     raw = sample_loop(ema_model.eval(), sched, cfg.scheduler, (B, 3, 4, 4), device="cpu",
                       generator=batch_generator(seed, 0, "cpu"), num_inference_steps=2,
-                      postprocess=False)
+                      kind="ddim", postprocess=False)
     assert raw.min() < 0.0  # raw latents, not post-processed to [0, 1]
     np.testing.assert_array_equal(np.load(store)["gen_features"], projected(raw, 0))
 
