@@ -222,6 +222,21 @@ Phases (one line each; any failure raises and exits non-zero):
     their peaks. Then ``pipelines.Pipeline.generate_images`` on the CIFAR
     checkpoint of phase 5: DDIM at eta 0 (bit for bit ``make_sampler``'s from
     the same initial noise) and eta 1, and DDPM.
+18. periphery: ``python -m group_attribution_for_diffusion_models_tpu_torch
+    main --dataset cifar --profile_dir`` at full width (batch 64, 3 steps,
+    f32, TF32 off): the trace parsed by ``utils.device_profile`` and its
+    table's head printed; the trace's B1-B4 launches (kernel records, plus
+    launch calls whose kernel record the profiler lost, listed) equal the
+    launch counters, and its device total is positive and within the call's
+    wall clock. ``cli.convert_weights --kind unet`` of phase 5's checkpoint as
+    a diffusers state dict; ``generate_samples`` from it and from the
+    original (16 x 10 DDIM steps) write byte-equal PNGs. ``runtime_report``
+    and ``sweep_report`` over [pipeline]'s and [unlearn]'s DBs;
+    ``experiments find-incomplete`` finds their checkpointed members
+    complete and the pipeline's uncheckpointed ones missing. The native JSONL
+    scan against the plain scan on [pipeline]'s DB, and the native image
+    loader against PIL on the CelebA stand-in (|d| <= 1), or the header its
+    build lacks; each timed beside its plain path.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -507,6 +522,14 @@ COND_BATCH, COND_WARM, COND_STEPS, COND_REF_BATCH = 64, 1, 3, 1
 COND_TOWER_DEPTH, COND_TOWER_ATOL = 4, 1e-4
 COND_GRID, COND_GRID_STEPS = 10, 10
 COND_PIPE_SAMPLES, COND_PIPE_STEPS = 4, 10
+# [periphery]: cli.main under --profile_dir at PERI_BATCH for PERI_STEPS steps (the
+# table's PERI_TOP rows printed); generate_samples of PERI_SAMPLES x PERI_SAMPLE_STEPS
+# DDIM steps from the converted checkpoint and from the original; the native image
+# loader held against PIL at the CelebA stand-in's size and at PERI_RESIZE (|d| <=
+# PERI_IMAGE_ATOL, the JAX package's test bound), each reader timed PERI_REPEATS times.
+PERI_BATCH, PERI_STEPS, PERI_TOP = 64, 3, 15
+PERI_SAMPLES, PERI_SAMPLE_STEPS = 16, 10
+PERI_RESIZE, PERI_IMAGE_ATOL, PERI_REPEATS = 64, 1, 3
 # WoodFisher card vs CPU at CIFAR width: k_vec from 4 images (2 batches of 2) and
 # injected draws; the change k - v within WF_RTOL of the CPU's in L2 norm (two
 # gradients of 35.7M entries, each TRAIN_STEP_RTOL-close, through two dot products).
@@ -4144,6 +4167,186 @@ def check_cond(torch, np, ops, root: str, card: str, dev, cifar_model_dir: str) 
     return total
 
 
+def check_periphery(torch, np, ops, root: str, card: str, cifar_model_dir: str) -> dict:
+    """The periphery of the port: cli.main under --profile_dir through the
+    package's ``python -m`` entry, its trace parsed and its kernel counts held
+    against the launch counters; convert_weights unet from a diffusers-layout
+    state dict, and samples from it byte-equal to the original's; the reports
+    and the sweep audit over [pipeline]'s and [unlearn]'s outputs; the native
+    readers against the plain paths, timed. Returns the launches."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from group_attribution_for_diffusion_models_tpu_torch import __main__ as entry
+    from group_attribution_for_diffusion_models_tpu_torch.cli import (
+        convert_weights, experiments, generate_samples, runtime_report, sweep_report)
+    from group_attribution_for_diffusion_models_tpu_torch.ops import _build
+    from group_attribution_for_diffusion_models_tpu_torch.utils import (
+        device_profile, jsonl, native_images, native_jsonl)
+
+    outdir = os.path.join(root, "periphery")
+    total = unet_counts(0, 0)
+
+    # cli.main under a profile, at full width on the CIFAR stand-in.
+    prof_dir = os.path.join(outdir, "profile")
+    out, wall, counts, _, peak = timed_call(torch, ops, entry.main, [
+        "main", "--dataset", "cifar", "--outdir", outdir, "--batch_size", str(PERI_BATCH),
+        "--training_steps", str(PERI_STEPS), "--ckpt_freq", "0", "--sample_freq", "0",
+        "--profile_dir", prof_dir, "--device", "cuda"])
+    total = add_counts(total, counts)
+    t0 = time.perf_counter()
+    events = device_profile.load_trace(prof_dir)
+    prof = device_profile.summarize(events)
+    parse_s = time.perf_counter() - t0
+    (trace_file,) = device_profile.trace_files(prof_dir)
+    traced = {k: prof.launches(k) for k in ops.KERNELS}
+    # Launch calls in the trace whose kernel record the profiler lost (on the
+    # card it loses a few of some thousand now and then): each is still a
+    # launch the trace shows, through its call and the gadm:: range around it.
+    lost = device_profile.untraced_launches(events)
+    shown = {k: traced[k] + lost.get(k, 0) for k in ops.KERNELS}
+    log(f"[periphery] python -m ...torch main cifar --profile_dir, {PERI_STEPS} steps at "
+        f"batch {out['batch_size']} f32 on {card}: training {out['train_seconds']:.3f} s (the "
+        f"row's total_steps_time {out['row']['total_steps_time']:.3f} s, without the "
+        f"profiler's start and export), call {wall:.3f} s, peak {peak:.2f} GiB; trace "
+        f"{os.path.getsize(trace_file) / 2**20:.1f} MiB parsed in {parse_s:.2f} s: device "
+        f"total {prof.device_total_us / 1e3:.3f} ms ({prof.device_total_us / 1e3 / PERI_STEPS:.3f}"
+        f" ms a step), trace span {prof.wall_us / 1e3:.3f} ms; kernels in the trace {traced}, "
+        f"launch calls whose kernel record the profiler lost {lost or 'none'}, launch counters "
+        f"{counts} (expected {unet_counts(PERI_STEPS, PERI_STEPS)})")
+    # The table's head, its first PERI_TOP signatures and its top ops.
+    table = device_profile.render_table(prof, top=PERI_TOP, repeats=PERI_STEPS).splitlines()
+    sig, top = table.index("-- by signature --"), table.index(f"-- top {PERI_TOP} ops --")
+    for line in table[:sig + 1 + PERI_TOP] + table[top:]:
+        log(f"[periphery] | {line[:200]}")
+    if out["row"]["profile_dir"] != prof_dir or counts != unet_counts(PERI_STEPS, PERI_STEPS):
+        raise AssertionError(f"cli.main --profile_dir: row {out['row']['profile_dir']}, "
+                             f"launches {counts}")
+    if shown != counts:
+        raise AssertionError(f"the trace shows {shown} launches ({traced} kernels, {lost} "
+                             f"records lost), the launch counters {counts}")
+    if not 0 < prof.device_total_us <= wall * 1e6:
+        raise AssertionError(f"device total {prof.device_total_us} us against a call of "
+                             f"{wall * 1e6:.0f} us")
+
+    # convert_weights unet: [main]'s seeded U-Net as a diffusers-layout state
+    # dict (the port's keys are diffusers'), converted, then sampled.
+    src = os.path.join(outdir, "diffusion_pytorch_model.bin")
+    state = torch.load(os.path.join(cifar_model_dir, "ckpt_steps_00000000", "state.pt"),
+                       map_location="cpu")
+    torch.save(state["ema_params"], src)
+    converted = os.path.join(outdir, "converted")
+    t0 = time.perf_counter()
+    convert_weights.main(["--kind", "unet", "--src", src, "--dst", converted,
+                          "--dataset", "cifar"])
+    convert_s = time.perf_counter() - t0
+    pngs = {}
+    for label, model_dir in (("converted", converted), ("original", cifar_model_dir)):
+        sample_dir = os.path.join(outdir, f"samples_{label}")
+        _, s_wall, s_counts, _, _ = timed_call(torch, ops, generate_samples.main, [
+            "--dataset", "cifar", "--load", model_dir, "--sample_outdir", sample_dir,
+            "--n_samples", str(PERI_SAMPLES), "--batch_size", str(PERI_SAMPLES),
+            "--num_inference_steps", str(PERI_SAMPLE_STEPS), "--device", "cuda"])
+        expect(f"generate_samples from the {label} checkpoint", s_counts,
+               ops.route_counts(), unet_counts(PERI_SAMPLE_STEPS, 0),
+               {name: 0 for name in ops.PLAIN_ROUTES}, phase="periphery")
+        total = add_counts(total, s_counts)
+        names = sorted(n for n in os.listdir(sample_dir) if n.endswith(".png"))
+        pngs[label] = [open(os.path.join(sample_dir, n), "rb").read() for n in names]
+        log(f"[periphery] generate_samples --load {label}: {len(names)} PNGs x "
+            f"{PERI_SAMPLE_STEPS} DDIM steps, call {s_wall:.3f} s")
+    same = pngs["converted"] == pngs["original"] and len(pngs["original"]) == PERI_SAMPLES
+    log(f"[periphery] convert_weights unet cifar ({len(state['ema_params'])} tensors) "
+        f"{convert_s:.3f} s; the converted checkpoint's PNGs byte-equal to the original's: {same}")
+    if not same:
+        raise AssertionError("samples of the converted checkpoint differ from the original's")
+
+    # The reports and the sweep audit.
+    pipe_db = os.path.join(root, "pipeline", "cifar_pipeline_db.jsonl")
+    unl_db = os.path.join(root, "unlearn", "cifar_train_db.jsonl")
+
+    def printed(fn, argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(argv)
+        return buf.getvalue()
+
+    for line in printed(runtime_report.main, ["--db", pipe_db, unl_db]).splitlines():
+        log(f"[periphery] runtime_report: {line}")
+    report = printed(sweep_report.main, ["--db", pipe_db, unl_db, "--keys", "method",
+                                         "training_steps", "--behavior", "loss", "--minimize"])
+    for line in report.splitlines():
+        log(f"[periphery] sweep_report: {line}")
+    audits = [  # (outdir, method, removal_dist, seeds, seeds with no checkpoint)
+        (os.path.join(root, "pipeline"), "retrain", "full", 1, 0),
+        (os.path.join(root, "unlearn"), "retrain", "shapley", len(UNL_SEEDS), 0),
+        (os.path.join(root, "unlearn"), "prune_fine_tune", "shapley", len(UNL_SEEDS), 0),
+        # The pipeline trains its fit members with --no-save_ckpts: no checkpoint.
+        (os.path.join(root, "pipeline"), "retrain", "shapley", PIPE_FIT, PIPE_FIT),
+    ]
+    for audit_dir, method, dist, n, missing in audits:
+        said = printed(experiments.main, [
+            "find-incomplete", "--dataset", "cifar", "--method", method, "--removal_dist",
+            dist, "--num_seeds", str(n), "--outdir", audit_dir, "--db", pipe_db,
+            "--command_file", os.path.join(outdir, f"retry_{method}_{dist}.txt")]).strip()
+        log(f"[periphery] experiments find-incomplete {os.path.basename(audit_dir)} {method} "
+            f"{dist} x{n}: {said.splitlines()[0]}")
+        if (missing == 0) != said.startswith("sweep complete") or (
+                missing and not said.startswith(f"{missing} incomplete")):
+            raise AssertionError(f"find-incomplete {method} {dist}: {said}")
+
+    # The native readers against the plain paths.
+    def best(fn) -> float:
+        times = []
+        for _ in range(PERI_REPEATS):
+            t0 = time.perf_counter()
+            result = fn()
+            times.append(time.perf_counter() - t0)
+        return result, min(times) * 1e3
+
+    if not native_jsonl.native_available():
+        raise AssertionError("the native JSONL scanner did not build")
+    cond = {"method": "retrain", "removal_dist": "shapley"}
+    native_rows, native_ms = best(lambda: native_jsonl.filter_records_native(pipe_db, cond))
+    plain_rows, plain_ms = best(lambda: jsonl.filter_records_plain(pipe_db, cond))
+    log(f"[periphery] native JSONL scan of [pipeline]'s DB ({os.path.getsize(pipe_db)} bytes, "
+        f"{len(list(jsonl.read_records(pipe_db)))} rows) for {cond}: {len(native_rows)} rows "
+        f"in {native_ms:.3f} ms, plain scan {plain_ms:.3f} ms, rows equal "
+        f"{native_rows == plain_rows}")
+    if native_rows != plain_rows or not native_rows:
+        raise AssertionError("the native JSONL scan disagrees with the plain scan")
+    celeba = os.path.join(os.environ["GADM_DATASET_DIR"], "celeba_hq", "train")
+    paths = sorted(os.path.join(celeba, n) for n in os.listdir(celeba) if n.endswith(".png"))
+    loader = native_images.native_available()
+    if not loader:
+        try:  # what the build lacks (the binding warned once, at its first use)
+            _build.build_host(native_images.SOURCE, native_images.LIBS)
+        except RuntimeError as e:
+            log(f"[periphery] native image loader not built: {e}")
+    for size in (Image.open(paths[0]).size[0], PERI_RESIZE):
+        def pil():
+            out = np.empty((len(paths), size, size, 3), np.uint8)
+            for i, path in enumerate(paths):
+                with Image.open(path) as im:
+                    out[i] = np.asarray(im.convert("RGB").resize((size, size), Image.BILINEAR))
+            return out
+
+        want, pil_ms = best(pil)
+        if not loader:
+            log(f"[periphery] PIL decode of {len(paths)} CelebA stand-in PNGs to {size}: "
+                f"{pil_ms:.3f} ms")
+            continue
+        got, native_ms = best(lambda: native_images.load_image_batch(paths, size))
+        diff = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        log(f"[periphery] native image loader, {len(paths)} CelebA stand-in PNGs to {size}: "
+            f"{native_ms:.3f} ms, PIL {pil_ms:.3f} ms, max |d| {diff} (tol {PERI_IMAGE_ATOL})")
+        if diff > PERI_IMAGE_ATOL:
+            raise AssertionError(f"native image loader against PIL: |d| {diff}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4324,14 +4527,17 @@ def run(torch, tmp: str) -> int:
     m = phase_done("[data] phase", m, tmp)
     cond_counts = check_cond(torch, np, ops, tmp, card, dev, model_dir)
     m = phase_done("[cond] phase", m, tmp)
+    peri_counts = check_periphery(torch, np, ops, tmp, card, model_dir)
+    m = phase_done("[periphery] phase", m, tmp)
 
-    # launches: the twelve main paths, sampling, cli.main's scanned and
-    # per-step loops, training, TRAK, the estimation loop, the sample behaviors, the latent-diffusion workload, the
-    # text-to-image tier, the single-model jobs, per-example attribution and
-    # local behaviors, workload 1's other datasets, and the prompt-conditional path.
+    # launches: the thirteen main paths, sampling, cli.main's scanned and
+    # per-step loops, training, TRAK, the estimation loop, the sample behaviors,
+    # the latent-diffusion workload, the text-to-image tier, the single-model
+    # jobs, per-example attribution and local behaviors, workload 1's other
+    # datasets, the prompt-conditional path, and the periphery.
     launches = add_counts(sample_counts, ens_counts, train_counts, trak_counts, pipe_counts,
                           score_counts, ldm_counts, tti_counts_, unlearn_counts, local_counts,
-                          data_counts, cond_counts)
+                          data_counts, cond_counts, peri_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

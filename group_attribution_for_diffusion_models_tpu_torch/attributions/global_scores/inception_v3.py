@@ -312,3 +312,33 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (leaves[path[-1]],))
             out[key] = torch.from_numpy(np.ascontiguousarray(v))
     return out
+
+
+def convert_torch_state_dict(state_dict: Mapping) -> Dict:
+    """A pytorch_fid / torchvision InceptionV3 state dict -> the JAX
+    package's variables {"params", "batch_stats"} of numpy (the port's copy
+    of its ``convert_torch_state_dict``, which ``cli.convert_weights
+    inception`` writes): conv (O, I, kH, kW) -> (kH, kW, I, O), BatchNorm
+    weight/bias -> scale/bias and running stats -> batch_stats mean/var; the
+    aux classifier and num_batches_tracked are dropped."""
+    from ...models.convert_diffusers import _numpy, _put
+
+    params: Dict = {}
+    batch_stats: Dict = {}
+    for key, value in state_dict.items():
+        v = _numpy(value)
+        parts = key.split(".")
+        if parts[-2] == "conv" and parts[-1] == "weight":
+            _put(params, tuple(parts[:-1]), "kernel", v.transpose(2, 3, 1, 0))
+        elif parts[-2] == "bn":
+            leaf = {"weight": (params, "scale"), "bias": (params, "bias"),
+                    "running_mean": (batch_stats, "mean"),
+                    "running_var": (batch_stats, "var")}.get(parts[-1])
+            if leaf:
+                _put(leaf[0], tuple(parts[:-1]), leaf[1], v)
+        elif parts[0] == "fc":
+            if parts[-1] == "weight":
+                _put(params, ("fc",), "kernel", v.T)
+            else:
+                _put(params, ("fc",), "bias", v)
+    return {"params": params, "batch_stats": batch_stats}

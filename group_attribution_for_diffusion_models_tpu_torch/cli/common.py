@@ -3,9 +3,9 @@
 Port of the parts of the JAX package's ``cli/common.py`` that sampling, the
 ensemble trainer and the TRAK features read: `config_for` (registry lookup,
 plus the tiny ``synthetic_*`` specs the tests use), the model-directory
-layout, the JSONL provenance row, the tracker, `add_common_args` without
-``--vqvae_weights`` (the LDM slice) and ``--profile_dir`` (a torch profiler
-comes later), and `checkpoint_spec`; for the scoring CLIs, the sample
+layout, the JSONL provenance row, the tracker, `add_common_args` (with
+``--profile_dir``, a torch.profiler trace of a training loop that
+`utils.device_profile` reads), and `checkpoint_spec`; for the scoring CLIs, the sample
 directory loader (`load_sample_dir`) and the reference images of FID; and
 for the text-to-image CLIs, the pretrained-tower flags and their loaders
 (`add_sd_pretrained_args`, `sd_text_params`, `sd_base_params`); the class
@@ -162,8 +162,12 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--vqvae_weights", type=str, default=None,
                         help="VQ-VAE params (.npy, the JAX tree) for latent workloads; "
                              "default: the seeded random tower")
-    parser.add_argument("--tracker", type=str, default="none", choices=["none", "jsonl"],
+    parser.add_argument("--tracker", type=str, default="none",
+                        choices=["none", "jsonl", "wandb", "tensorboard"],
                         help="training-scalar tracker (logs under <outdir>/logs)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the training loop here "
+                             "(read it with utils.device_profile.parse_trace_dir)")
 
 
 def tracker_for(args, run_name: str):

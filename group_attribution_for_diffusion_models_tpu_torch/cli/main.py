@@ -46,7 +46,10 @@ Two of the JAX CLI's runs exit before anything is loaded (ROADMAP C4):
 (the hash tokenizer's ids lie outside LDMBert's vocabulary), and
 ``--dataset imagenette``, where the JAX package gives the U-Net 256x256
 pixels but it takes 4x32x32 latents, and no autoencoder exists for them.
-``--profile_dir`` is not ported yet (ROADMAP queue A item 9) and exits.
+``--profile_dir`` traces the training loop with torch.profiler (CUDA
+activity on the card) into one Chrome trace, which
+`utils.device_profile.parse_trace_dir` reads; the row's
+``total_steps_time`` leaves out the profiler's start and the trace's export.
 
 Usage (smoke, CPU):
     python -m group_attribution_for_diffusion_models_tpu_torch.cli.main \\
@@ -76,6 +79,7 @@ from ..training.train import make_train_step
 from ..utils.ckpt import load_checkpoint, resume_or_init, save_checkpoint
 from ..utils.device import resolve_device, to_device
 from ..utils.jsonl import append_record
+from ..utils.profiling import trace
 from .common import (
     add_common_args,
     checkpoint_spec,
@@ -139,8 +143,6 @@ def parse_args(argv=None):
     parser.add_argument("--n_inference_samples", type=int, default=None,
                         help="images per in-training EMA sample grid "
                              "(default min(config n_samples, 16))")
-    parser.add_argument("--profile_dir", type=str, default=None,
-                        help="not ported (ROADMAP queue A item 9)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain versions")
     return parser.parse_args(argv)
@@ -156,9 +158,6 @@ def _early_exits(args, cfg) -> None:
             "and the workload has no autoencoder to make them")
     if cfg.unet.conditional:
         require_wordpiece(args.text_encoder_kind, args.tokenizer_dir)
-    if args.profile_dir:
-        raise SystemExit("--profile_dir: a torch.profiler trace of the training loop is not "
-                         "ported yet (ROADMAP queue A item 9)")
 
 
 def save_sample_grid(model: UNet2D, cfg, spec, n: int, step: int, model_dir: str, device,
@@ -342,40 +341,41 @@ def main(argv=None):
         return time.time() - t_start - sampling_time
 
     sampling_time = ckpt_time = 0.0
-    t_start = time.time()
     done = start_step
-    while done < training_steps:
-        end = done + 1
-        if args.scan_chunk:
-            # A chunk ends at the next log, sample or checkpoint step.
-            end = min(training_steps, done + args.scan_chunk)
-            for f in (args.log_freq, sample_freq, ckpt_freq):
-                if f:
-                    end = min(end, (done // f + 1) * f)
-        for step_i in range(done, end):
-            gen = torch.Generator(device=device).manual_seed(_step_seed(args.opt_seed, step_i))
-            images, ehs = next_batch(step_i)
-            metrics = step_fn(state, images, gen, encoder_hidden_states=ehs)
-        done = end
-        if done % args.log_freq == 0 or done == training_steps:
-            loss, norm = float(metrics["loss"]), float(metrics.get("grad_norm", float("nan")))
-            print(f"Step[{done}/{training_steps}] loss={loss:.5f} grad_norm={norm:.4f} "
-                  f"steps_time={elapsed():.1f}s", flush=True)
-            tracker.log({"loss": loss, "grad_norm": norm, "steps_time": elapsed()}, done)
-        if sample_freq and done % sample_freq == 0:
-            t_s = time.time()
-            sample_grid(done)
-            sampling_time += time.time() - t_s
-        if (ckpt_freq and done % ckpt_freq == 0) or done == training_steps:
-            sync()
-            t_c = time.time()
-            params, ema = state.state_dicts()
-            save_checkpoint(model_dir, done, params, ema, remaining_idx, removed_idx,
-                            total_steps_time + elapsed(), unet_spec=spec,
-                            opt_state=state.opt_state)
-            ckpt_time += time.time() - t_c
-    sync()
-    train_s = elapsed()
+    with trace(args.profile_dir, device):
+        t_start = time.time()
+        while done < training_steps:
+            end = done + 1
+            if args.scan_chunk:
+                # A chunk ends at the next log, sample or checkpoint step.
+                end = min(training_steps, done + args.scan_chunk)
+                for f in (args.log_freq, sample_freq, ckpt_freq):
+                    if f:
+                        end = min(end, (done // f + 1) * f)
+            for step_i in range(done, end):
+                gen = torch.Generator(device=device).manual_seed(_step_seed(args.opt_seed, step_i))
+                images, ehs = next_batch(step_i)
+                metrics = step_fn(state, images, gen, encoder_hidden_states=ehs)
+            done = end
+            if done % args.log_freq == 0 or done == training_steps:
+                loss, norm = float(metrics["loss"]), float(metrics.get("grad_norm", float("nan")))
+                print(f"Step[{done}/{training_steps}] loss={loss:.5f} grad_norm={norm:.4f} "
+                      f"steps_time={elapsed():.1f}s", flush=True)
+                tracker.log({"loss": loss, "grad_norm": norm, "steps_time": elapsed()}, done)
+            if sample_freq and done % sample_freq == 0:
+                t_s = time.time()
+                sample_grid(done)
+                sampling_time += time.time() - t_s
+            if (ckpt_freq and done % ckpt_freq == 0) or done == training_steps:
+                sync()
+                t_c = time.time()
+                params, ema = state.state_dicts()
+                save_checkpoint(model_dir, done, params, ema, remaining_idx, removed_idx,
+                                total_steps_time + elapsed(), unet_spec=spec,
+                                opt_state=state.opt_state)
+                ckpt_time += time.time() - t_c
+        sync()
+        train_s = elapsed()
     total_steps_time += train_s
     tracker.finish()
 

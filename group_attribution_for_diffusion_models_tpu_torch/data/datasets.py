@@ -202,9 +202,14 @@ def category_codes(values: List[str]) -> np.ndarray:
 def _load_image_dir(root: str, size: int, labels_csv: Optional[str] = None) -> ArrayDataset:
     """A directory of images, optionally with a ``labels.csv`` group table
     whose first two columns are (filename, group); each image decoded to RGB
-    and resized to `size` (bilinear) with PIL. Without a table: the image
-    files in name order, group 0."""
+    and resized to `size` (bilinear). Without a table: the image files in
+    name order, group 0. The native loader (`utils.native_images`) decodes
+    the whole directory where it is built; PIL decodes it otherwise, and
+    when the directory holds a format the native decoder rejects (webp, CMYK
+    JPEG: ValueError), as the JAX loader does."""
     from PIL import Image
+
+    from ..utils.native_images import load_image_batch
 
     if labels_csv is not None:
         with open(labels_csv, newline="") as f:
@@ -215,11 +220,17 @@ def _load_image_dir(root: str, size: int, labels_csv: Optional[str] = None) -> A
         files = sorted(f for f in os.listdir(root)
                        if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
         groups = np.zeros(len(files), dtype=np.int64)
-    imgs = np.empty((len(files), size, size, 3), dtype=np.uint8)
-    for i, name in enumerate(files):
-        with Image.open(os.path.join(root, name)) as im:
-            imgs[i] = np.asarray(im.convert("RGB").resize((size, size), Image.BILINEAR),
-                                 dtype=np.uint8)
+    paths = [os.path.join(root, name) for name in files]
+    try:
+        imgs = load_image_batch(paths, size)
+    except ValueError:
+        imgs = None
+    if imgs is None:
+        imgs = np.empty((len(files), size, size, 3), dtype=np.uint8)
+        for i, path in enumerate(paths):
+            with Image.open(path) as im:
+                imgs[i] = np.asarray(im.convert("RGB").resize((size, size), Image.BILINEAR),
+                                     dtype=np.uint8)
     return ArrayDataset(_normalize(imgs), groups, names=list(files))
 
 

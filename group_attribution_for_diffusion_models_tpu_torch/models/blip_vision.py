@@ -201,3 +201,39 @@ def make_blip_feature_fn(model: BlipVisionTower, batch_size: int = 64):
 
     return extract
 
+
+
+def convert_blip_vision_state_dict(state_dict: Mapping) -> Dict:
+    """An HF BlipVisionModel state dict -> the JAX package's param tree of
+    numpy (the port's copy of its ``convert_blip_vision_state_dict``, which
+    ``cli.convert_weights blip_vision`` writes)."""
+    from .convert_diffusers import _numpy, _put
+
+    p: Dict = {}
+    for key, value in state_dict.items():
+        v = _numpy(value)
+        key = key.replace("vision_model.", "")
+        if key == "embeddings.class_embedding":
+            p["class_embedding"] = v.reshape(-1)
+        elif key == "embeddings.position_embedding":
+            p["position_embedding"] = v.reshape(v.shape[-2], v.shape[-1])
+        elif key == "embeddings.patch_embedding.weight":
+            _put(p, ("patch_embedding",), "kernel", v.transpose(2, 3, 1, 0))
+        elif key == "embeddings.patch_embedding.bias":
+            _put(p, ("patch_embedding",), "bias", v)
+        elif key == "post_layernorm.weight":
+            _put(p, ("post_layernorm",), "scale", v)
+        elif key == "post_layernorm.bias":
+            _put(p, ("post_layernorm",), "bias", v)
+        elif key.startswith("encoder.layers."):
+            parts = key.split(".")
+            base, rest = (f"layer_{parts[2]}",), parts[3:]
+            if rest[0] == "self_attn":
+                leaf = "kernel" if rest[-1] == "weight" else "bias"
+                _put(p, base + ("self_attn", rest[1]), leaf, v.T if leaf == "kernel" else v)
+            elif rest[0] in ("layer_norm1", "layer_norm2"):
+                _put(p, base + (rest[0],), "scale" if rest[1] == "weight" else "bias", v)
+            elif rest[0] == "mlp":
+                leaf = "kernel" if rest[-1] == "weight" else "bias"
+                _put(p, base + (rest[1],), leaf, v.T if leaf == "kernel" else v)
+    return p

@@ -202,3 +202,36 @@ def load_tokenizer(vocab_dir: Optional[str] = None, max_length: int = 77):
 
         return CLIPBPETokenizer.from_dir(vocab_dir, max_length=max_length)
     return HashTokenizer(max_length=max_length)
+
+
+def convert_clip_text_state_dict(state_dict: Dict) -> Dict:
+    """An HF CLIPTextModel state dict -> the JAX package's param tree of
+    numpy (the port's copy of its ``convert_clip_text_state_dict``, which
+    ``cli.convert_weights clip_text`` writes): linears transposed, LayerNorm
+    weight -> scale, other keys dropped."""
+    from .convert_diffusers import _numpy, _put
+
+    p: Dict = {}
+    for key, value in state_dict.items():
+        v = _numpy(value)
+        key = key.replace("text_model.", "")
+        if key == "embeddings.token_embedding.weight":
+            _put(p, ("token_embedding",), "embedding", v)
+        elif key == "embeddings.position_embedding.weight":
+            p["position_embedding"] = v
+        elif key.startswith("encoder.layers."):
+            parts = key.split(".")
+            base, rest = (f"layer_{parts[2]}",), parts[3:]
+            if rest[0] == "self_attn":
+                leaf = "kernel" if rest[2] == "weight" else "bias"
+                _put(p, base + ("self_attn", rest[1]), leaf, v.T if leaf == "kernel" else v)
+            elif rest[0] in ("layer_norm1", "layer_norm2"):
+                _put(p, base + (rest[0],), "scale" if rest[1] == "weight" else "bias", v)
+            elif rest[0] == "mlp":
+                leaf = "kernel" if rest[2] == "weight" else "bias"
+                _put(p, base + (rest[1],), leaf, v.T if leaf == "kernel" else v)
+        elif key == "final_layer_norm.weight":
+            _put(p, ("final_layer_norm",), "scale", v)
+        elif key == "final_layer_norm.bias":
+            _put(p, ("final_layer_norm",), "bias", v)
+    return p

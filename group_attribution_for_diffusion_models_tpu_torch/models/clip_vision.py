@@ -244,3 +244,44 @@ def params_from_jax(params: Mapping, head: Optional[Mapping] = None) -> Dict[str
         else:
             raise KeyError(f"unknown CLIP vision param {name}")
     return out
+
+
+def convert_clip_vision_state_dict(state_dict: Mapping) -> Dict:
+    """An HF CLIPVisionModelWithProjection state dict -> the JAX package's
+    param tree of numpy (the port's copy of its
+    ``convert_clip_vision_state_dict``, which ``cli.convert_weights
+    clip_vision`` writes)."""
+    from .convert_diffusers import _numpy, _put
+
+    p: Dict = {}
+    direct = {
+        "embeddings.class_embedding": ((), "class_embedding", False),
+        "embeddings.position_embedding.weight": ((), "position_embedding", False),
+        "pre_layrnorm.weight": (("pre_layernorm",), "scale", False),
+        "pre_layernorm.weight": (("pre_layernorm",), "scale", False),
+        "pre_layrnorm.bias": (("pre_layernorm",), "bias", False),
+        "pre_layernorm.bias": (("pre_layernorm",), "bias", False),
+        "post_layernorm.weight": (("post_layernorm",), "scale", False),
+        "post_layernorm.bias": (("post_layernorm",), "bias", False),
+        "visual_projection.weight": (("visual_projection",), "kernel", True),
+    }
+    for key, value in state_dict.items():
+        v = _numpy(value)
+        key = key.replace("vision_model.", "")
+        if key in direct:
+            path, leaf, transpose = direct[key]
+            _put(p, path, leaf, v.T if transpose else v)
+        elif key == "embeddings.patch_embedding.weight":
+            _put(p, ("patch_embedding",), "kernel", v.transpose(2, 3, 1, 0))
+        elif key.startswith("encoder.layers."):
+            parts = key.split(".")
+            base, rest = (f"layer_{parts[2]}",), parts[3:]
+            if rest[0] == "self_attn":
+                leaf = "kernel" if rest[2] == "weight" else "bias"
+                _put(p, base + ("self_attn", rest[1]), leaf, v.T if leaf == "kernel" else v)
+            elif rest[0] in ("layer_norm1", "layer_norm2"):
+                _put(p, base + (rest[0],), "scale" if rest[1] == "weight" else "bias", v)
+            elif rest[0] == "mlp":
+                leaf = "kernel" if rest[2] == "weight" else "bias"
+                _put(p, base + (rest[1],), leaf, v.T if leaf == "kernel" else v)
+    return p

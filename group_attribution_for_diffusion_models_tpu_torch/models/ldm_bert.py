@@ -184,3 +184,34 @@ def load_ldm_bert(weights_path: Optional[str] = None, device="cuda", quiet: bool
             print("WARNING: LDMBert text tower running random-init (no weights); "
                   "outputs are not reference-comparable")
     return model.eval().requires_grad_(False)
+
+
+def convert_ldm_bert_state_dict(state_dict: Dict) -> Dict:
+    """A torch ``LDMBertModel`` state dict (keys under ``model.`` or bare)
+    -> the JAX package's param tree of numpy (the port's copy of its
+    ``convert_ldm_bert_state_dict``, which ``cli.convert_weights ldm_bert``
+    writes): linears transposed, embeddings as they are, LayerNorm weight ->
+    scale, the ``to_logits`` head dropped."""
+    from .convert_diffusers import _numpy, _put
+
+    params: Dict = {}
+    for key, value in state_dict.items():
+        v = _numpy(value)
+        parts = key.split(".")
+        if parts[0] == "model":
+            parts = parts[1:]
+        if not parts or parts[0] == "to_logits":
+            continue
+        if parts[0] == "embed_tokens":
+            _put(params, ("embed_tokens",), "embedding", v)
+        elif parts[0] == "embed_positions":
+            params["embed_positions"] = v
+        elif parts[0] == "layers":
+            mod, leaf = (f"layer_{parts[1]}", *parts[2:-1]), parts[-1]
+            if leaf == "weight" and v.ndim == 2:
+                _put(params, mod, "kernel", v.T)
+            else:
+                _put(params, mod, "scale" if leaf == "weight" else "bias", v)
+        elif parts[0] == "layer_norm":
+            _put(params, ("layer_norm",), "scale" if parts[-1] == "weight" else "bias", v)
+    return params

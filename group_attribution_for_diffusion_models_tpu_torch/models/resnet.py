@@ -185,3 +185,38 @@ def resnet18_embed(model: ResNet18Features, images01: np.ndarray, batch_size: in
             x = resize_bilinear(x.to(device).permute(0, 3, 1, 2), input_size)
             feats.append(model(x).cpu().numpy())
     return np.concatenate(feats)
+
+
+def convert_resnet18_state_dict(state_dict: Mapping) -> Dict:
+    """A torchvision ``resnet18().state_dict()`` -> the JAX package's
+    variables {"params", "batch_stats"} of numpy (the port's copy of its
+    ``convert_resnet18_state_dict``, which ``cli.convert_weights resnet18``
+    writes): convs OIHW -> HWIO, BatchNorm running stats into batch_stats,
+    the fc head and num_batches_tracked dropped."""
+    from .convert_diffusers import _numpy, _put
+
+    params: Dict = {}
+    batch_stats: Dict = {}
+    for key, value in state_dict.items():
+        v = _numpy(value)
+        parts = key.split(".")
+        if parts[0] == "fc":
+            continue
+        leaf, mod = parts[-1], parts[:-1]
+        if mod[0] in ("conv1", "bn1"):
+            path = (mod[0],)
+        elif mod[2] == "downsample":
+            path = (f"{mod[0]}_{mod[1]}", "downsample_conv" if mod[3] == "0" else "downsample_bn")
+        else:
+            path = (f"{mod[0]}_{mod[1]}", mod[2])
+        if leaf == "weight" and v.ndim == 4:
+            _put(params, path, "kernel", v.transpose(2, 3, 1, 0))
+        elif leaf == "weight":
+            _put(params, path, "scale", v)
+        elif leaf == "bias":
+            _put(params, path, "bias", v)
+        elif leaf == "running_mean":
+            _put(batch_stats, path, "mean", v)
+        elif leaf == "running_var":
+            _put(batch_stats, path, "var", v)
+    return {"params": params, "batch_stats": batch_stats}

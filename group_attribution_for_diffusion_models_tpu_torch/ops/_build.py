@@ -11,6 +11,12 @@ missing library at first use.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``ops/`` raise when that is not 0.
+
+`build_host` compiles the repository's host C++ sources (``native/*.cpp``,
+the JSONL scanner and the image loader that ``utils/native_*.py`` bind) the
+same way with g++ and ``native/Makefile``'s flags, into the same directory;
+as ``-march=native`` ties a library to the CPU it was built on, its name
+also hashes that CPU's model and flags.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -103,6 +110,50 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
+
+
+_CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")  # native/Makefile's
+
+
+def _host_cpu() -> bytes:
+    """The CPU a ``-march=native`` library is built for: the machine type and
+    the model and flags lines of /proc/cpuinfo, where there is one."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f if ln.startswith((b"model name", b"flags"))][:2]
+    except OSError:
+        lines = []
+    return platform.machine().encode() + b"".join(lines)
+
+
+def build_host(source: str, libs: Iterable[str] = ()) -> str:
+    """Compile the C++ file `source` (a plain C interface) with g++ into
+    ``csrc/build/``, linked with `libs`, unless it is built already. Returns
+    the library's path; raises RuntimeError naming what is missing (g++, a
+    header) or with the compiler's output."""
+    libs = tuple(libs)
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(" ".join(_CXX_FLAGS + libs).encode() + _host_cpu())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([cxx, *_CXX_FLAGS, "-o", tmp, source, *libs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        missing = (re.search(r"fatal error: (\S+): No such file", proc.stderr)
+                   or re.search(r"cannot find (-l\w+)", proc.stderr))
+        if missing:
+            raise RuntimeError(f"g++ {stem}.cpp: {missing.group(1)} is missing")
+        raise RuntimeError(f"g++ {stem}.cpp exited {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builds agree
+    return path
 
 
 @functools.cache

@@ -36,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import launch_scope
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -193,6 +194,12 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _dims(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """A launch's shape, as its profiler range names it."""
+    b, sq, h, d = q.shape
+    return dict(B=b, Sq=sq, Skv=k.shape[1], H=h, D=d, dtype=str(q.dtype).split(".")[1])
+
+
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The CUDA attention forward kernel. q: (B, Sq, H, D), k/v: (B, Skv, H, D),
     all on one CUDA device in float32 or bfloat16, D % 8 == 0 and D <= 256."""
@@ -200,11 +207,12 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib, fn = _fwd_fn()
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, h, sq, k.shape[1], d, _strides(q, k, v), 1.0 / math.sqrt(d), q.device.index,
-        _stream(q),
-    )
+    with launch_scope("attention_fwd", lambda: _dims(q, k)):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            b, h, sq, k.shape[1], d, _strides(q, k, v), 1.0 / math.sqrt(d), q.device.index,
+            _stream(q),
+        )
     _build.check(lib, err, "attention forward kernel")
     attention_kernel.launches += 1
     return out
@@ -224,11 +232,12 @@ def attention_bwd_dq(
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     lib, fn = _bwd_dq_fn()
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, h, sq, k.shape[1], d,
-        _strides(q, k, v, do), 1.0 / math.sqrt(d), q.device.index, _stream(q),
-    )
+    with launch_scope("attention_bwd_dq", lambda: _dims(q, k)):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, h, sq, k.shape[1], d,
+            _strides(q, k, v, do), 1.0 / math.sqrt(d), q.device.index, _stream(q),
+        )
     _build.check(lib, err, "attention backward dQ kernel")
     attention_bwd_dq.launches += 1
     return dq, lse, delta
@@ -252,12 +261,13 @@ def attention_bwd_dkv(
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     lib, fn = _bwd_dkv_fn()
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, sq,
-        k.shape[1], d, _strides(q, k, v, do), 1.0 / math.sqrt(d), q.device.index,
-        _stream(q),
-    )
+    with launch_scope("attention_bwd_dkv", lambda: _dims(q, k)):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, h, sq,
+            k.shape[1], d, _strides(q, k, v, do), 1.0 / math.sqrt(d), q.device.index,
+            _stream(q),
+        )
     _build.check(lib, err, "attention backward dK/dV kernel")
     attention_bwd_dkv.launches += 1
     return dk, dv

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import launch_scope
 from . import _build
 from .attention import fold_vmapped, unfold_vmapped
 
@@ -135,6 +136,16 @@ def _affine_count(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return rows
 
 
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _dims(x: torch.Tensor, groups: int, silu: bool) -> dict:
+    """A launch's shape, as its profiler range names it."""
+    return dict(B=x.shape[0], C=x.shape[1], HW=x[0, 0].numel(), G=groups, silu=int(silu),
+                dtype=_name(x.dtype))
+
+
 def group_norm_kernel(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, groups: int,
     eps: float, silu: bool, out_dtype: torch.dtype,
@@ -156,12 +167,14 @@ def group_norm_kernel(
     mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     lib, fn = _fwd_fn()
-    err = fn(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), _DTYPES[x.dtype], _DTYPES[out_dtype],
-        b, c, x[0, 0].numel(), groups, rows, eps, int(silu), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with launch_scope("group_norm_fwd",
+                      lambda: dict(_dims(x, groups, silu), out=_name(out_dtype))):
+        err = fn(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), _DTYPES[x.dtype], _DTYPES[out_dtype],
+            b, c, x[0, 0].numel(), groups, rows, eps, int(silu), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(lib, err, "group norm forward kernel")
     group_norm_kernel.launches += 1
     return out, mean, rstd
@@ -198,12 +211,13 @@ def group_norm_bwd_kernel(
     dx = torch.empty_like(x)
     part = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
     lib, fn = _bwd_fn()
-    err = fn(
-        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, c,
-        x[0, 0].numel(), groups, rows, int(silu), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with launch_scope("group_norm_bwd", lambda: _dims(x, groups, silu)):
+        err = fn(
+            x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), part.data_ptr(), _DTYPES[x.dtype], b, c,
+            x[0, 0].numel(), groups, rows, int(silu), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _build.check(lib, err, "group norm backward kernel")
     group_norm_bwd_kernel.launches += 1
     return dx, part

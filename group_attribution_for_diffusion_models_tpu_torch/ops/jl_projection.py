@@ -34,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import launch_scope
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,11 +153,13 @@ def jl_project_kernel(grads: torch.Tensor, proj_dim: int, seed: int = 0) -> torc
     partial = torch.empty((splits, b, proj_dim), dtype=torch.float32, device=grads.device)
     out = torch.empty((b, proj_dim), dtype=torch.float32, device=grads.device)
     lib, fn = _fn()
-    err = fn(
-        grads.data_ptr(), partial.data_ptr(), out.data_ptr(), _DTYPES[grads.dtype], b, d,
-        proj_dim, chunk, splits, seed & _MASK, _scale(proj_dim), grads.device.index,
-        torch.cuda.current_stream(grads.device).cuda_stream,
-    )
+    with launch_scope("jl_projection", lambda: dict(B=b, D=d, P=proj_dim,
+                                                      dtype=str(grads.dtype).split(".")[1])):
+        err = fn(
+            grads.data_ptr(), partial.data_ptr(), out.data_ptr(), _DTYPES[grads.dtype], b, d,
+            proj_dim, chunk, splits, seed & _MASK, _scale(proj_dim), grads.device.index,
+            torch.cuda.current_stream(grads.device).cuda_stream,
+        )
     _build.check(lib, err, "JL projection kernel")
     jl_project_kernel.launches += 1
     return out

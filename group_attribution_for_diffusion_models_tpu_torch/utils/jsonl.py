@@ -3,9 +3,9 @@
 Port of the JAX package's ``utils/jsonl.py`` with the same row format, so
 the JAX package's LDS tier reads the rows the port writes. A row is
 ``vars(args) + scores + remaining_idx/removed_idx + timings`` (reference
-unconditional_generation/main.py:790-800), appended as one write. Filtering
-is the plain Python scan; the JAX package's native mmap prefilter waits for
-its own port.
+unconditional_generation/main.py:790-800), appended as one write.
+`filter_records` takes the native mmap prefilter (`utils.native_jsonl`)
+where it is built and the plain Python scan otherwise.
 """
 
 from __future__ import annotations
@@ -53,7 +53,18 @@ def read_records(db_path: str) -> Iterator[Dict[str, Any]]:
 
 
 def filter_records(db_path: str, condition: Mapping[str, Any]) -> List[Dict[str, Any]]:
-    """Rows matching every (key, value) in `condition` (reference lds.py:203-266)."""
+    """Rows matching every (key, value) in `condition` (reference lds.py:203-266):
+    the native scanner's where it is built, else the plain scan's."""
+    from .native_jsonl import filter_records_native
+
+    native = filter_records_native(db_path, condition)
+    if native is not None:
+        return native
+    return filter_records_plain(db_path, condition)
+
+
+def filter_records_plain(db_path: str, condition: Mapping[str, Any]) -> List[Dict[str, Any]]:
+    """`filter_records` by the plain Python scan: the native path's reference."""
     return [rec for rec in read_records(db_path)
             if all(rec.get(k) == v for k, v in condition.items())]
 

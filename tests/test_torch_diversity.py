@@ -35,8 +35,6 @@ from group_attribution_for_diffusion_models_tpu_torch.models import blip_vision
 from group_attribution_for_diffusion_models_tpu_torch.utils import jsonl
 
 BLIP_TOL = 2e-3
-# The JAX common flag of a slice not ported yet (a torch profiler).
-LEFT_OUT = {"profile_dir"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -90,15 +88,14 @@ def test_cli_on_embeddings_npz_matches_the_jax_cli(tmp_path):
                 "removed_idx", "sampling_time", "num_clusters"):
         assert got[key] == want[key], key
     assert row["entropy"] == want["entropy"]
-    assert set(got) - {"device"} == set(want) - LEFT_OUT
+    assert set(got) - {"device"} == set(want)
 
 
 def test_cli_flags_and_defaults_match_the_jax_cli():
     argv = ["--dataset", "celeba"]
     port = vars(calculate_global_scores_diversity.parse_args(argv))
     assert port.pop("device") == "cuda"
-    assert port == {k: v for k, v in vars(jax_cli.parse_args(argv)).items()
-                    if k not in LEFT_OUT}
+    assert port == vars(jax_cli.parse_args(argv))
     with pytest.raises(SystemExit, match="need --load"):
         calculate_global_scores_diversity.main(argv + ["--device", "cpu"])
 

@@ -80,7 +80,6 @@ SAMPLE_ATOL = 1e-4
 METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-7
 B, STEPS, NOISES, SEED = 3, 3, 2, 42
 WORKLOADS = ["synthetic_64x8", "synthetic_64x16_ldm"]
-LEFT_OUT = {"profile_dir"}  # the port's common flags have no --profile_dir (ROADMAP A9)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -273,7 +272,7 @@ def test_cli_rows_have_the_jax_keys(checkpoints, cli, monkeypatch):
     run(port_cli.main, "port", "--device", "cpu")
     (want,) = list(jax_read_records(str(root / cli / "jax.jsonl")))
     (got,) = list(read_records(str(root / cli / "port.jsonl")))
-    assert set(got) - {"device"} == set(want) - LEFT_OUT
+    assert set(got) - {"device"} == set(want)
     assert got["remaining_idx"] == want["remaining_idx"] == remaining.tolist()
     assert got["removed_idx"] == want["removed_idx"] == removed.tolist()
     if cli == "loss":

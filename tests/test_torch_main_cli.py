@@ -15,8 +15,9 @@ against the JAX package, on the CPU.
 * The CLI: its row and checkpoint meta against the JAX CLI's (keys; removal
   indices bit for bit), resume against an uninterrupted run (bit for bit on
   the CPU), ``--ckpt_freq 0``, prune_fine_tune's pruned spec and weights, the
-  latent path on a tiny VQ config, and ``--profile_dir``, not ported, which
-  exits (the prompt-conditional path: tests/test_torch_cond_main.py).
+  latent path on a tiny VQ config, and ``--profile_dir``, whose trace
+  `utils.device_profile` reads and whose flag the row carries (the
+  prompt-conditional path: tests/test_torch_cond_main.py).
 """
 
 import dataclasses
@@ -60,6 +61,7 @@ from group_attribution_for_diffusion_models_tpu_torch.training import (
     make_optimizer,
     make_train_step,
 )
+from group_attribution_for_diffusion_models_tpu_torch.utils import device_profile
 from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import (
     get_max_steps,
     load_checkpoint,
@@ -306,9 +308,20 @@ def test_latent_path_on_a_tiny_vq_config(tmp_path):
     assert grid.shape == (16, 32, 3)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--dataset", DATASET, "--profile_dir", "/tmp/p"], "item 9"),
-])
-def test_unported_paths_exit_with_their_item(tmp_path, extra, item):
-    with pytest.raises(SystemExit, match=item):
-        main_cli.main(extra + ["--outdir", str(tmp_path), "--device", "cpu"])
+def test_profile_dir_writes_a_trace_and_rows_carry_it(tmp_path):
+    """--profile_dir traces the loop into one Chrome trace that
+    `device_profile.parse_trace_dir` reads (on the CPU its ops, the U-Net's
+    convolutions among them), and the row carries the flag, as the JAX
+    CLI's rows do."""
+    prof_dir = str(tmp_path / "prof")
+    out = main_cli.main(["--dataset", DATASET, "--training_steps", "2", "--sample_freq", "0",
+                         "--profile_dir", prof_dir, "--outdir", str(tmp_path),
+                         "--device", "cpu"])
+    assert out["row"]["profile_dir"] == prof_dir
+    (row,) = list(read_records(out["db"]))
+    assert row["profile_dir"] == prof_dir
+    assert len(device_profile.trace_files(prof_dir)) == 1
+    prof = device_profile.parse_trace_dir(prof_dir)
+    assert prof.by_category["convolution"] > 0
+    assert 0 < prof.device_total_us <= prof.wall_us
+    assert any(r.gflops for r in prof.ops if r.category == "convolution")

@@ -269,8 +269,6 @@ def test_31_test_rows_land_in_3_groups_with_none_dropped(monkeypatch, tmp_path):
     assert port_out["summary"]["test_groups"] == 3
 
 
-# The JAX common flag of a slice not ported yet (a torch profiler).
-LEFT_OUT = {"profile_dir"}
 # Defaults the port sets apart: a train_ensemble call stacks all its members
 # on one card at once, so the pipeline's calls hold what one 80 GB H100 fits
 # (train_ensemble.MEMBERS_PER_CALL) where the JAX CLI's hold 32.
@@ -289,7 +287,7 @@ def test_cli_flags_and_defaults_match_the_jax_cli(name, argv):
         f"group_attribution_for_diffusion_models_tpu_torch.cli.{name}").parse_args(argv)
     jax = importlib.import_module(
         f"group_attribution_for_diffusion_models_tpu.cli.{name}").parse_args(argv)
-    want = {k: v for k, v in vars(jax).items() if k not in LEFT_OUT}
+    want = vars(jax)
     want.update(PORT_DEFAULTS.get(name, {}))
     assert {k: v for k, v in vars(port).items() if k != "device"} == want
 

@@ -18,8 +18,8 @@ those gradients through dot products of 70k-entry vectors in float32);
 float32 against a dense float64 evaluation of the same formula, rtol 1e-5
 in L2.
 
-`cli.unlearn` for iu, gd, ga and lora: rows with the JAX CLI's keys, less
-LEFT_OUT, and its removal indices bit for bit (the JAX CLI runs with its
+`cli.unlearn` for iu, gd, ga and lora: rows with the JAX CLI's keys and
+its removal indices bit for bit (the JAX CLI runs with its
 flax init swapped for drawn parameters and its training replaced by a
 no-op: the row depends on no weight); ga raises the loss on the removed
 set; the LoRA merge leaves every other weight bit for bit as it was.
@@ -79,7 +79,6 @@ from test_torch_unet import _jax_params, _port_spec, _variant
 
 GRAD_RTOL, WF_RTOL = 1e-4, 1e-3
 DATASET = "synthetic_64x8_big"  # a U-Net with attention: LoRA has its targets
-LEFT_OUT = {"profile_dir"}  # the JAX common flag no port job reads (ROADMAP A item 9)
 SEED, ALPHA, BATCH, WF_BATCHES = 7, 0.5, 8, 3
 
 
@@ -289,7 +288,7 @@ def test_cli_rows_have_the_jax_keys_and_removal(loaded, method, monkeypatch):
                                  "--db", db, "--device", "cpu"))
     (want,) = list(jax_read_records(jax_db))
     (got,) = list(read_records(db))
-    assert set(got) - {"device"} == set(want) - LEFT_OUT
+    assert set(got) - {"device"} == set(want)
     assert got["remaining_idx"] == want["remaining_idx"]
     assert got["removed_idx"] == want["removed_idx"]
     assert got["unlearn_time"] > 0 and got["sampling_time"] == 0.0
