@@ -48,14 +48,14 @@ Phases (one line each; any failure raises and exits non-zero):
    per-step loop.
 5. main path, sampling: a seeded random-init full-width CIFAR checkpoint
    sampled through ``cli.generate_samples.main`` (2 batches of 64 images x
-   50 DDIM steps; the second batch's time is the warm one).
+   25 DDIM steps; the second batch's time is the warm one).
 6. reference: 5 DDIM steps of the same model on the card against the CPU
    from the same initial noise.
 7. main path, training: ``cli.train_ensemble.main`` on a seeded stand-in for
    the CIFAR-10 training set (50,000 uint8 images in the
    ``cifar-10-batches-py`` layout), full-width CIFAR, 8 shapley members at
    batch 64, stacked (one launch a kernel site a step for all of them), with
-   eval loss and 16 DDIM samples each: 4 steps timed, the first one's
+   eval loss and 16 DDIM samples each: 3 steps timed, the first one's
    set-up among them (no warm-up call).
 8. trak-step: the full-width CIFAR per-sample gradients (batch 2, one
    timestep, injected noise) through the vmap rules on the card against the
@@ -81,7 +81,7 @@ Phases (one line each; any failure raises and exits non-zero):
     bound from the layer shapes; the same for VGG16Features at 224. Then
     the main path of the sample behaviors: ``cli.shapley_pipeline.main
     --behavior is`` at full width on the stand-in (by class, 2 shapley fit
-    and 2 datamodel test subsets, the fewest its fit stage takes, 3 steps at
+    and 2 datamodel test subsets, the fewest its fit stage takes, 2 steps at
     batch 64, the two anchors, 256 DDIM samples of 5 steps a member scored
     in the loop by the Inception tower), its seconds split into training,
     sampling and tower, launches, every member's IS and the efficiency
@@ -101,12 +101,12 @@ Phases (one line each; any failure raises and exits non-zero):
     ``cli.shapley_pipeline.main --dataset celeba --vqvae_weights`` (by
     celebrity, 3 fit and 2 test subsets, 2 steps at batch 32, the two
     anchors, only the anchors checkpointed; one encode of the stand-in, then
-    its cache), ``cli.generate_samples.main`` (16 images x 5 DDIM steps
+    its cache), ``cli.generate_samples.main`` (16 images x 3 DDIM steps
     decoded to 256x256
     PNGs, all distinct), a card-vs-CPU reference at batch 1 (3 DDIM steps and
     the decode, encode -> quantize of a stand-in image, codes agreeing at
     99% or more), and ``cli.calculate_global_scores_diversity.main`` (32
-    samples, 128 reference images, 8 clusters, the full random BLIP tower),
+    samples of 3 DDIM steps, 128 reference images, 8 clusters, the full random BLIP tower),
     each with its launches and plain-route calls reckoned from the spec;
     and one member trained with and without ``--remat --remat_policy convs``
     (the JAX package's CelebA option): the same weights bit for bit, the
@@ -149,7 +149,7 @@ Phases (one line each; any failure raises and exits non-zero):
     constraint on the saved attributions) and ``cli.shapley_convergence.
     main`` (the sparse fine-tunes against the retrained members);
     ``cli.grad_features_tti.main`` (LoRA-only per-sample gradients under a
-    context per sample: the train source on 32 images in batches of 16 x 3
+    context per sample: the train source on 32 images in batches of 16 x 2
     timesteps, timed with its gradients/JL split, then every image at one
     timestep; generated, 16 samples x 4 steps; generated_journey), the
     latents read from the trainer's tagged cache, ``cli.traks.main``;
@@ -164,8 +164,9 @@ Phases (one line each; any failure raises and exits non-zero):
     model) on shapley seeds 0..2 by class, ga from the full model.
     ``cli.unlearn`` from the full model on shapley seed 1: gd, ga and lora
     (rank 16, the base frozen: no GroupNorm gamma/beta reduction, and the
-    merge moves only attention projections) with local behaviors (8 paired
-    samples x 10 DDIM steps), gd with the global ones (64 samples, FID, IS
+    merge moves only attention projections), 5 steps each, with local
+    behaviors (8 paired samples x 5 DDIM steps), gd with the global ones (64
+    samples x 5 steps, FID, IS
     and P&R of the random Inception tower); iu and ``cli.shapley_groundtruth``
     (7 enumerated subsets x 2 steps, the efficiency constraint on the exact
     values) on a 750-image 3-class CIFAR stand-in; ``cli.attribute``
@@ -237,6 +238,22 @@ Phases (one line each; any failure raises and exits non-zero):
     scan against the plain scan on [pipeline]'s DB, and the native image
     loader against PIL on the CelebA stand-in (|d| <= 1), or the header its
     build lacks; each timed beside its plain path.
+19. mesh: members over ranks at full CIFAR width (batch 64, f32, TF32 off).
+    ``make_mesh((2, 1))`` at world size 1 warns and clamps to (1, 1), and a
+    trainer on it is the unsharded trainer bit for bit (2 members x 2 steps);
+    NCCL asked for a second rank on the one card refuses, naming gloo. Then
+    two gloo ranks share the card (``parallel.multihost.spawn``, a file
+    store): 2 members x 2 steps at (2, 1) and 1 member x 2 steps at (1, 2),
+    each rank's draws bit for bit the one-process run's (its member's rows,
+    its slice of the batch), the losses and EMA gathered on rank 0 within
+    the member loop's tolerances of it, each step timed beside the
+    one-process step, the data row's gradient mean timed, the gathers, each
+    rank's peak; ``train_ensemble --mesh_ensemble 2`` on the two ranks (rows
+    and checkpoints written once, by rank 0, within those tolerances of the
+    one-process run); B1-B4 held in each rank at its shapes against their
+    plain versions; each rank's launches added to the kernels line. Last,
+    this process as one NCCL rank: a gather of CUDA tensors (host copies,
+    over the group's gloo) and a mean of them (NCCL) on a new group.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -279,14 +296,14 @@ SAMPLE_ATOL = 2e-3  # images in [0, 1] after 5 DDIM steps of that forward
 # or a wrong backward kernel is off by O(1).
 TRAIN_STEP_RTOL = 1e-3
 TRAIN_STEP_BATCH = 8
-# 4 steps, with no warm-up call: the first step's set-up is among the 4 timed
+# 3 steps, with no warm-up call: the first step's set-up is among the 3 timed
 # ([ensemble] ran the stacked step at batch 64 just before, with 4 members).
-TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_BATCH = 8, 4, 64
+TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_BATCH = 8, 3, 64
 # train_ensemble caps the batch at the smallest subset (as the JAX CLI does).
 # Shapley seeds 22..29 keep 65 to 49,999 of the 50,000 images, so the
 # members train at batch 64; seed 7, for one, keeps 3.
 TRAIN_SEED_START = 22
-TRAIN_SAMPLES, TRAIN_SAMPLE_STEPS = 16, 20
+TRAIN_SAMPLES, TRAIN_SAMPLE_STEPS = 16, 10
 CIFAR_TRAIN_IMAGES = 50_000  # the CIFAR-10 training set's size, 5 batches
 # JL projection, kernel vs plain: f32 sums of D terms in other orders (the
 # kernel's chunks of D, the plain version's tiles), held per row to
@@ -359,7 +376,7 @@ TOWER_TOL, TOWER_CHECK_IMAGES, TOWER_BATCH = 2e-3, 2, 256
 # 2048-d host sqrtm of 12-25 s, six of them were a sixth of a run, and the run's
 # time on a slower host is what bounds it; FID is held by calculate_global_scores
 # on the full anchor here and by cli.unlearn's global behaviors.
-SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 3, 64
+SCORE_FIT, SCORE_TEST, SCORE_STEPS, SCORE_BATCH = 2, 2, 2, 64
 SCORE_SAMPLES, SCORE_SAMPLE_STEPS, SCORE_SEED = 256, 5, 42
 # calculate_global_scores --seed SCORE_SEED on the anchor's checkpoint draws the
 # anchor's own samples (train_ensemble's default --opt_seed, which the pipeline
@@ -373,11 +390,21 @@ SCORE_RTOL = 1e-6
 # ENS_RTOL max |g| over all tensors; per tensor the change of the weights
 # within ENS_MOVE_RTOL of its L2 norm (the CPU tests' rule: Adam turns float
 # noise of a gradient element near zero into a visible share of lr).
-ENS_MEMBERS, ENS_BATCH, ENS_TIMED, ENS_RTOL, ENS_MOVE_RTOL = 4, 64, 2, 1e-4, 1e-2
+ENS_MEMBERS, ENS_BATCH, ENS_TIMED, ENS_RTOL, ENS_MOVE_RTOL = 4, 64, 1, 1e-4, 1e-2
 ENS_SCAN_STEPS, ENS_SCAN_CHUNK = 4, 3  # run_scanned(4, chunk=3) against run(4)
 ENS_TTI_MEMBERS = 2  # miniSD LoRA members stacked, at TTI_BATCH
 ENS_MAIN_STEPS, ENS_MAIN_CHUNK = 10, 5  # cli.main --scan_chunk on CIFAR
-STEPS, BATCH, N_BATCHES = 50, 64, 2
+# [mesh]: members over ranks at full CIFAR width, batch 64, f32, TF32 off.
+# Two gloo ranks share the one card (NCCL puts one rank on a card): 2 members
+# x 2 steps at (2, 1) and 1 member x 2 steps at (1, 2), each against the same
+# run in one process, with ENS_RTOL and ENS_MOVE_RTOL (the member loop's
+# tolerances: the same f32 ops in other batch shapes and, on the data axis,
+# a mean of two half-batch gradients for the whole batch's); then
+# train_ensemble --mesh_ensemble 2 on the two ranks. MESH_TIMEOUT bounds every
+# collective and the launch.
+MESH_STEPS, MESH_SEED_START, MESH_OPT_SEED, MESH_TIMEOUT = 2, 22, 42, 300
+MESH_PROBE, MESH_SAMPLES, MESH_SAMPLE_STEPS = 64, 4, 5
+STEPS, BATCH, N_BATCHES = 25, 64, 2
 # [ldm]: the latent-diffusion workload at full CelebA width (get_config("celeba"):
 # a 274,056,163-parameter U-Net on 64x64x3 latents of the full VQVAESpec) on a
 # CelebA-HQ stand-in of LDM_IMAGES seeded smooth 256x256 PNGs, LDM_IMAGES /
@@ -389,8 +416,8 @@ LDM_VQ_STEPS, LDM_VQ_BATCH = 3, 8  # train_vqvae at the full VQVAESpec
 # of the 8 groups (48 or more images) and datamodel seeds 42, 43 keep 4, so every
 # member trains at batch 32.
 LDM_FIT, LDM_TEST, LDM_STEPS, LDM_BATCH = 3, 2, 2, 32
-LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 5  # generate_samples, one batch
-LDM_DIV_SAMPLES, LDM_DIV_STEPS, LDM_CLUSTERS = 32, 5, 8  # and 4 x 32 reference images
+LDM_SAMPLES, LDM_SAMPLE_STEPS = 16, 3  # generate_samples, one batch
+LDM_DIV_SAMPLES, LDM_DIV_STEPS, LDM_CLUSTERS = 32, 3, 8  # and 4 x 32 reference images
 LDM_ATTN_SHAPES = [  # the CelebA U-Net's attention at training batch 32, head dim 32
     (32, 1024, 1024, 14, 32),  # 32x32 latents
     (32, 256, 256, 21, 32),    # 16x16
@@ -444,7 +471,7 @@ TTI_MEMBER_SAMPLES, TTI_MEMBER_STEPS, TTI_MEMBER_NOISES = 2, 5, 1
 # grad_features_tti: the train source timed on the first TTI_TRAK_EXAMPLES images
 # (2 artists: the stand-in is in name order), then on every image at one timestep,
 # so that traks' attributions cover the 16 artists for baseline_lds.
-TTI_TRAK_EXAMPLES, TTI_TRAK_BATCH, TTI_TRAK_TIMESTEPS, TTI_TRAK_PROJ = 32, 16, 3, 4096
+TTI_TRAK_EXAMPLES, TTI_TRAK_BATCH, TTI_TRAK_TIMESTEPS, TTI_TRAK_PROJ = 32, 16, 2, 4096
 TTI_TRAK_SAMPLES, TTI_TRAK_SAMPLE_STEPS = 16, 4
 # Per-sample LoRA gradients, card vs CPU (2 samples, each with its own context,
 # one timestep): TRAIN_STEP_RTOL of each sample's largest entry. The CLIP vision
@@ -464,10 +491,10 @@ TTI_VMAP_ATTN = [(1024, 8, 40), (256, 8, 80), (64, 8, 160), (16, 8, 160)]
 # UNL_SMALL_IMAGES-image stand-in of UNL_SMALL_CLASSES classes (cut to size: iu's
 # average gradients run over every image of both sets). CelebA: cli.main 2 steps
 # at batch 32 on shapley seed 1 (3 of 8 celebrities, 48 images), iu on it.
-UNL_SEEDS, UNL_STEPS, UNL_SEED_STEPS, UNL_BATCH = (0, 1, 2), 10, 3, 64
-UNL_UNLEARN_STEPS, UNL_LORA_RANK, UNL_UNLEARN_SEED = 10, 16, 1
-UNL_LOCAL, UNL_GLOBAL = (8, 10), (64, 10)  # (n_samples, DDIM steps)
-UNL_SMALL_IMAGES, UNL_SMALL_CLASSES, UNL_WF_BATCHES, UNL_GT_STEPS = 750, 3, 8, 2
+UNL_SEEDS, UNL_STEPS, UNL_SEED_STEPS, UNL_BATCH = (0, 1, 2), 10, 2, 64
+UNL_UNLEARN_STEPS, UNL_LORA_RANK, UNL_UNLEARN_SEED = 5, 16, 1
+UNL_LOCAL, UNL_GLOBAL = (8, 5), (64, 5)  # (n_samples, DDIM steps)
+UNL_SMALL_IMAGES, UNL_SMALL_CLASSES, UNL_WF_BATCHES, UNL_GT_STEPS = 750, 3, 4, 2
 UNL_LDM_STEPS, UNL_LDM_BATCH = 2, 32
 # [local]: per-example attribution and local behaviors on both unconditional
 # workloads. grad_features on [ldm]'s CelebA full anchor and tagged latents cache at
@@ -491,7 +518,7 @@ LOC_VMAP_GN = [(224, 64, 64), (448, 32, 32), (672, 16, 16), (896, 8, 8)]
 # behaviors on CIFAR and CelebA: LOC_LOCAL samples x LOC_LOCAL_STEPS[dataset] DDIM
 # steps, LOC_NOISES loss draws. CelebA takes fewer steps: each step of its local
 # loss decodes both models' x0-hat through the VQ decoder.
-LOC_SKETCH = dict(max_examples=64, n_gen=32, ks=(16, 64), timesteps=2, steps=10, proj=512)
+LOC_SKETCH = dict(max_examples=64, n_gen=32, ks=(16, 64), timesteps=2, steps=5, proj=512)
 LOC_LOCAL, LOC_NOISES = 8, 4
 LOC_LOCAL_STEPS = {"cifar": 5, "celeba": 2}
 # An attention-only backward (TRAK's probe and attn_full modes) skips the 7
@@ -1100,12 +1127,11 @@ def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=Non
     return out
 
 
-def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name, batch=GN_CENSUS_BATCH,
-                     eps=1e-6, library=False) -> dict:
-    """One census shape: both kernels held and repeated, then timed."""
-    import torch.nn.functional as F
-
-    shape = (batch, c, h, w)
+def hold_gn_shape(torch, ops, dev, shape, silu, dtype, name, eps=1e-6):
+    """Both GroupNorm kernels at `shape` against their plain versions (TOL,
+    SUM_TOL) and repeated bit for bit; raises where they disagree. Returns
+    (x, gamma, beta, dy, forward args, backward args, the checks)."""
+    c = shape[1]
     g = torch.Generator(device=dev).manual_seed(8)
     x = (torch.randn(shape, generator=g, device=dev) * 3 + 0.5).to(dtype)
     gamma = torch.randn(c, generator=g, device=dev) + 1
@@ -1125,6 +1151,16 @@ def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name, batch=GN_CENSU
     if not (all(ok for _, ok in checks) and same):
         raise AssertionError(f"group norm kernels disagree at {shape} silu={silu} "
                              f"{name}: {checks}, repeatable={same}")
+    return x, gamma, beta, dy, args, bargs, checks
+
+
+def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name, batch=GN_CENSUS_BATCH,
+                     eps=1e-6, library=False) -> dict:
+    """One census shape: both kernels held and repeated, then timed."""
+    import torch.nn.functional as F
+
+    x, gamma, beta, dy, args, bargs, checks = hold_gn_shape(
+        torch, ops, dev, (batch, c, h, w), silu, dtype, name, eps)
     fwd = device_ms(torch, lambda: ops.group_norm_kernel(*args))
     bwd_kernel = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*bargs))
     xr, gr, br = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
@@ -4347,6 +4383,349 @@ def check_periphery(torch, np, ops, root: str, card: str, cifar_model_dir: str) 
     return total
 
 
+def mesh_data(np, dev):
+    """(uint8 images, config) of [mesh]: the CIFAR stand-in as train_ensemble
+    reads it."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli.common import config_for
+    from group_attribution_for_diffusion_models_tpu_torch.data import create_dataset
+
+    ds = create_dataset("cifar", train=True, device=dev)
+    return ((ds.images + 1.0) * 127.5).round().astype(np.uint8), config_for("cifar")
+
+
+def mesh_trainer(images, cfg, members: int, dev, mesh=None):
+    """The trainer train_ensemble builds for `members` shapley seeds from
+    MESH_SEED_START with --independent_noise at batch ENS_BATCH, on `mesh`."""
+    from group_attribution_for_diffusion_models_tpu_torch.data import sample_removal
+    from group_attribution_for_diffusion_models_tpu_torch.diffusion import make_schedule
+    from group_attribution_for_diffusion_models_tpu_torch.parallel import EnsembleTrainer
+    from group_attribution_for_diffusion_models_tpu_torch.training import make_optimizer
+
+    opt = cfg.train.optimizer
+    tx = make_optimizer(opt.name, lr=opt.lr, weight_decay=opt.weight_decay,
+                        grad_clip_norm=opt.grad_clip_norm)
+    subsets = [sample_removal("shapley", len(images), seed=MESH_SEED_START + m)[0]
+               for m in range(members)]
+    return EnsembleTrainer(tx=tx, schedule=make_schedule(cfg.scheduler, dev), spec=cfg.scheduler,
+                           images_u8=images, member_indices=subsets, batch_size=ENS_BATCH,
+                           device=dev, common_noise=False, mesh=mesh)
+
+
+def mesh_run(torch, trainer, spec):
+    """MESH_STEPS steps of `trainer`'s members from train_ensemble's init
+    (--opt_seed MESH_OPT_SEED): (state, each step's draws on the host, the
+    last losses, each step's seconds to a device synchronise, the initial
+    parameters on the host)."""
+    from group_attribution_for_diffusion_models_tpu_torch.models import build_unet
+    from group_attribution_for_diffusion_models_tpu_torch.parallel.ensemble import _step_seed
+
+    state = trainer.init_state(lambda seed: build_unet(spec, seed), seed=MESH_OPT_SEED)
+    start = [p.detach().cpu() for p in state.params.values()]
+    draws, secs = [], []
+    for i in range(MESH_STEPS):
+        step_seed = _step_seed(MESH_OPT_SEED, i)
+        draws.append([x.cpu() for x in trainer.draws(step_seed)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(state, step_seed)["loss"]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, draws, loss, secs, start
+
+
+def hold_unet_kernels(torch, ops, dev, batches, label: str) -> float:
+    """B1-B4 at the CIFAR U-Net's shapes (its two attention shapes, every
+    GroupNorm of GN_CENSUS) at each of `batches` against their plain
+    versions (TOL, SUM_TOL), each repeated bit for bit, f32; raises where
+    they disagree, else returns the largest error."""
+    worst = 0.0
+    for b in batches:
+        for sq in (256, 16):
+            g = torch.Generator(device=dev).manual_seed(0)
+            q, k, v, do = (torch.randn(b, sq, 1, 256, generator=g, device=dev) for _ in range(4))
+            got = ops.attention_kernel(q, k, v)
+            err, ok = compare(got, ops.attention_plain(q, k, v), "float32")
+            same = torch.equal(got, ops.attention_kernel(q, k, v))
+            dq_cmp, dkv_cmp, same_b, _ = check_attention_bwd_once(torch, ops, q, k, v, do,
+                                                                  "float32")
+            if not (ok and same and same_b and all(o for _, o in dq_cmp + dkv_cmp)):
+                raise AssertionError(f"[{label}] attention kernels disagree at "
+                                     f"{(b, sq, sq, 1, 256)}: {err}, {dq_cmp}, {dkv_cmp}")
+            worst = max(worst, err, *(e for e, _ in dq_cmp + dkv_cmp))
+        for c, h, w, silu, _ in GN_CENSUS:
+            checks = hold_gn_shape(torch, ops, dev, (b, c, h, w), silu, torch.float32,
+                                   "float32")[-1]
+            worst = max(worst, *(e for e, _ in checks))
+    return worst
+
+
+def mesh_rank(out: str) -> None:
+    """One rank of [mesh], started by ``parallel.multihost.spawn`` (two gloo
+    ranks on the card): the (2, 1) and (1, 2) meshes of the CIFAR trainer, MESH_STEPS
+    timed steps each, their draws, the data row's mean timed on a step's
+    gradients, the members' losses and EMA gathered to rank 0; then
+    train_ensemble --mesh_ensemble 2; the launches of those, the peak, and
+    B1-B4 at this rank's shapes against their plain versions. Writes
+    OUT/rank<r>.json, OUT/draws<r>.pt and, on rank 0, OUT/ema_<layout>.pt."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from group_attribution_for_diffusion_models_tpu_torch import ops
+    from group_attribution_for_diffusion_models_tpu_torch.cli import train_ensemble
+    from group_attribution_for_diffusion_models_tpu_torch.parallel import (
+        gather_members, make_mesh)
+    from group_attribution_for_diffusion_models_tpu_torch.parallel.multihost import (
+        maybe_initialize)
+
+    marks_ = {"entry": time.time()}  # the wall clock, against the launch's start
+    dev = maybe_initialize("cuda")
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    images, cfg = mesh_data(np, dev)
+    marks_["data"] = time.time()
+    res, draws = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    for tag, shape, members in (("e", (2, 1), 2), ("d", (1, 2), 1)):
+        mesh = make_mesh(shape)
+        trainer = mesh_trainer(images, cfg, members, dev, mesh)
+        state, draws[tag], loss, secs, _ = mesh_run(torch, trainer, cfg.unet)
+        coll = []
+        if mesh.row_group is not None:
+            grads = [p.grad for p in state.params.values()] + [loss.clone()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.pmean_data(grads)
+            torch.cuda.synchronize()
+            coll.append(time.perf_counter() - t0)
+            grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        t0 = time.perf_counter()
+        got = gather_members(mesh, [loss] + state.ema)
+        gather_s = time.perf_counter() - t0
+        if got is not None:
+            torch.save({"loss": got[0], "ema": got[1:]}, os.path.join(out, f"ema_{tag}.pt"))
+        res[tag] = dict(step_seconds=secs, collective_seconds=coll,
+                        collective_bytes=grad_bytes if coll else 0, gather_seconds=gather_s,
+                        members=list(trainer.members), coords=list(mesh.coords),
+                        batch=int(draws[tag][0][0].shape[1]))
+        del state, trainer, got
+        torch.cuda.empty_cache()
+        marks_[tag] = time.time()
+    t0 = time.perf_counter()
+    train_ensemble.main([
+        "--dataset", "cifar", "--removal_dist", "shapley", "--seed_start",
+        str(MESH_SEED_START), "--num_seeds", "2", "--training_steps", str(MESH_STEPS),
+        "--batch_size", str(ENS_BATCH), "--independent_noise", "--eval_loss",
+        "--eval_probe_size", str(MESH_PROBE), "--n_samples", str(MESH_SAMPLES),
+        "--num_inference_steps", str(MESH_SAMPLE_STEPS), "--mesh_ensemble", "2",
+        "--outdir", os.path.join(out, "cli"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    marks_["cli"] = time.time()
+    err = hold_unet_kernels(torch, ops, dev, [ENS_BATCH, ENS_BATCH // 2], f"mesh rank {rank}")
+    marks_["held"] = time.time()
+    torch.save(draws, os.path.join(out, f"draws{rank}.pt"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(res, launches=counts, peak_gib=peak, cli_seconds=cli_s,
+                       kernel_max_abs_err=err, device=str(dev), marks=marks_), f)
+
+
+def nccl_group_check(torch, store: str):
+    """This process as the one rank of an NCCL group (`multihost.initialize`
+    as a cluster's ranks call it): `gather_members` of a CUDA tensor (host
+    copies, over the group's gloo) and `all_mean_` of one (over NCCL) on a
+    group made after the default one, and a barrier. Returns (the backend,
+    whether both came back equal and the gather on the host)."""
+    import torch.distributed as dist
+
+    from group_attribution_for_diffusion_models_tpu_torch.parallel import multihost
+    from group_attribution_for_diffusion_models_tpu_torch.parallel.mesh import (
+        AXES, Mesh, all_mean_, gather_members)
+
+    multihost.initialize(f"file://{store}", 1, 0, backend="nccl", device="cuda",
+                         timeout=MESH_TIMEOUT)
+    try:
+        backend = dist.get_backend()
+        group = dist.new_group([0])
+        x = torch.arange(6.0, device="cuda").view(2, 3)
+        (got,) = gather_members(Mesh((1, 1), AXES, 0, (0, 0), group=group), [x])
+        y = x.clone()
+        all_mean_([y], group, 1)
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        ok = got.device.type == "cpu" and torch.equal(got, x.cpu()) and torch.equal(y, x)
+    finally:
+        multihost.shutdown()
+    return backend, ok
+
+
+def check_mesh(torch, np, ops, root: str, card: str, dev) -> dict:
+    """Members over ranks at full CIFAR width (f32, TF32 off, batch 64).
+
+    (a) make_mesh((2, 1)) at world size 1 warns and clamps to (1, 1), and a
+    trainer on it is the unsharded trainer bit for bit (2 members x
+    MESH_STEPS steps: states, losses, draws). (b) Two gloo ranks on the one
+    card (`mesh_rank`): at (2, 1) each trains one of the 2 members, at (1, 2)
+    each half of one member's batch; their draws bit for bit the one-process
+    run's (its members' rows, its batch's slices), the losses and EMA
+    gathered on rank 0 within ENS_RTOL / ENS_MOVE_RTOL of it; then
+    train_ensemble --mesh_ensemble 2 on them: its rows and checkpoints, each
+    written once, within the same tolerances of the one-process run. NCCL
+    asked for a second rank on the card refuses and names the gloo option.
+    (c) `nccl_group_check`: this process as one NCCL rank. Returns the launches of the main paths: the clamped mesh's run and both
+    ranks' (the kernels held in the ranks against their plain versions not
+    among them)."""
+    import warnings
+
+    from group_attribution_for_diffusion_models_tpu_torch.parallel import make_mesh, multihost
+    from group_attribution_for_diffusion_models_tpu_torch.utils.ckpt import load_checkpoint
+    from group_attribution_for_diffusion_models_tpu_torch.utils.jsonl import read_records
+
+    images, cfg = mesh_data(np, dev)
+    spec = cfg.unet
+
+    def flat(state):
+        return [x.detach() for x in list(state.params.values()) + state.ema
+                + state.opt_state.mu + state.opt_state.nu]
+
+    # (a) the clamp at world size 1
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        clamped = make_mesh((2, 1))
+    warned = [str(w.message) for w in caught if "clamping to (1, 1)" in str(w.message)]
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    a, a_draws, a_loss, a_secs, start = mesh_run(torch, mesh_trainer(images, cfg, 2, dev,
+                                                                     clamped), spec)
+    counts = ops.launch_counts()
+    b, b_draws, b_loss, b_secs, _ = mesh_run(torch, mesh_trainer(images, cfg, 2, dev), spec)
+    bitwise = (all(torch.equal(x, y) for x, y in zip(flat(a), flat(b)))
+               and torch.equal(a_loss, b_loss)
+               and all(torch.equal(x, y) for s, t in zip(a_draws, b_draws) for x, y in zip(s, t)))
+    log(f"[mesh] make_mesh((2, 1)) at world size 1: shape {clamped.shape}, warned "
+        f"{warned}; 2 CIFAR members x {MESH_STEPS} steps at batch {ENS_BATCH} on it vs "
+        f"without a mesh on {card}: states, losses and draws bitwise equal={bitwise}; "
+        f"launches {counts}")
+    if not (clamped.shape == (1, 1) and warned and bitwise
+            and counts == unet_counts(MESH_STEPS, MESH_STEPS)):
+        raise AssertionError("the clamped mesh is not the unsharded trainer")
+    e_ref = dict(draws=a_draws, loss=a_loss.cpu(), ema=[x.cpu() for x in a.ema], secs=a_secs)
+    names = list(a.params)
+    del a, b
+    d, d_draws, d_loss, d_secs, d_start = mesh_run(torch, mesh_trainer(images, cfg, 1, dev), spec)
+    d_ref = dict(draws=d_draws, loss=d_loss.cpu(), ema=[x.cpu() for x in d.ema], secs=d_secs)
+    del d
+    torch.cuda.empty_cache()
+    try:
+        multihost.rank_device("cuda", "nccl", torch.cuda.device_count())
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    log(f"[mesh] NCCL asked for local rank {torch.cuda.device_count()} on "
+        f"{torch.cuda.device_count()} card(s): {refused!r}")
+    if "--backend gloo" not in refused:
+        raise AssertionError("NCCL with two ranks on one card did not refuse naming gloo")
+
+    # (b) two gloo ranks on the one card
+    out = os.path.join(root, "mesh")
+    os.makedirs(out, exist_ok=True)
+    launched = time.time()
+    t0 = time.perf_counter()
+    try:
+        multihost.spawn(mesh_rank, 2, (out,), backend="gloo", device="cuda",
+                        timeout=MESH_TIMEOUT, log_dir=out)
+    except BaseException:
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                sys.stderr.write(f"--- rank {r} ---\n" + f.read()[-6000:])
+        raise
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    rank_draws = [torch.load(os.path.join(out, f"draws{r}.pt")) for r in range(2)]
+    half = ENS_BATCH // 2
+    e_same = all(torch.equal(x, y[r:r + 1]) for r in range(2)
+                 for got, want in zip(rank_draws[r]["e"], e_ref["draws"])
+                 for x, y in zip(got, want))
+    d_same = all(torch.equal(x, y[:, r * half:(r + 1) * half]) for r in range(2)
+                 for got, want in zip(rank_draws[r]["d"], d_ref["draws"])
+                 for x, y in zip(got, want))
+
+    def against(tag, ref, start_params):
+        got = torch.load(os.path.join(out, f"ema_{tag}.pt"))
+        loss_rel = ((got["loss"] - ref["loss"]).abs() / ref["loss"].abs()).max().item()
+        moved = max(moved_within(
+            {n: x[m] for n, x in zip(names, start_params)},
+            {n: x[m] for n, x in zip(names, got["ema"])},
+            {n: x[m] for n, x in zip(names, ref["ema"])})[0] for m in range(len(ref["loss"])))
+        return loss_rel, moved
+
+    e_loss, e_moved = against("e", e_ref, start)
+    d_loss, d_moved = against("d", d_ref, d_start)
+    rows = list(read_records(os.path.join(out, "cli", "cifar_train_db.jsonl")))
+    cli_loss = np.asarray([r["loss"] for r in rows])
+    cli_loss_rel = float(np.abs(cli_loss - e_ref["loss"].numpy()).max()
+                         / np.abs(e_ref["loss"].numpy()).min())
+    cli_moved = 0.0
+    for m, row in enumerate(rows):
+        ema = load_checkpoint(row["model_dir"])["ema_params"]
+        cli_moved = max(cli_moved, moved_within(
+            {n: start[i][m] for i, n in enumerate(names)}, {n: ema[n] for n in names},
+            {n: e_ref["ema"][i][m] for i, n in enumerate(names)})[0])
+    # Each rank: MESH_STEPS steps at (2, 1), at (1, 2) and in the CLI, whose eval
+    # and sampling run the rank's one member.
+    per_rank = unet_counts(3 * MESH_STEPS + 1 + MESH_SAMPLE_STEPS, 3 * MESH_STEPS)
+    launches = add_counts(counts, *(r["launches"] for r in ranks))
+    e_secs = [r["e"]["step_seconds"][-1] for r in ranks]
+    d_secs = [r["d"]["step_seconds"][-1] for r in ranks]
+    coll = [float(np.mean(r["d"]["collective_seconds"])) for r in ranks]
+    log(f"[mesh] 2 gloo ranks on the one card ({card}), launch {wall:.1f} s: draws bitwise "
+        f"the one-process run's at (2, 1)={e_same} and at (1, 2) (slices {half} of the "
+        f"batch)={d_same}; (2, 1) losses max rel {e_loss:.3g}, EMA max ||d|| / ||move|| "
+        f"{e_moved:.3g}; (1, 2) losses max rel {d_loss:.3g}, EMA {d_moved:.3g} (tol "
+        f"{ENS_RTOL}, {ENS_MOVE_RTOL}); B1-B4 held in each rank at batch {ENS_BATCH} and "
+        f"{half}, max_abs_err {max(r['kernel_max_abs_err'] for r in ranks):.3g}")
+    log(f"[mesh] step seconds (the second of {MESH_STEPS}) on {card}: (2, 1) one process "
+        f"with 2 members {e_ref['secs'][-1]:.4f}, two ranks with 1 each {e_secs}; (1, 2) one "
+        f"process at batch {ENS_BATCH} {d_ref['secs'][-1]:.4f}, two ranks at {half} each "
+        f"{d_secs}, of which the data row's gradient mean ({ranks[0]['d']['collective_bytes']} "
+        f"bytes, gloo, CUDA tensors) {coll} s a step; the gathers to rank 0 "
+        f"{[round(r['e']['gather_seconds'], 4) for r in ranks]} (2, 1), "
+        f"{[round(r['d']['gather_seconds'], 4) for r in ranks]} (1, 2) s; peaks "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB a rank")
+    log(f"[mesh] each rank's wall clock from the launch (s): "
+        f"{[{k: round(v - launched, 1) for k, v in r['marks'].items()} for r in ranks]} "
+        f"(entry: the process started and imported; data: joined, the stand-in read; "
+        f"e, d: each layout's steps, checks and gathers; cli: train_ensemble; held: B1-B4)")
+    log(f"[mesh] train_ensemble --mesh_ensemble 2 on the two ranks ({[round(r['cli_seconds'], 1) for r in ranks]} s): "
+        f"{len(rows)} rows for seeds {[r['removal_seed'] for r in rows]}, losses max rel "
+        f"{cli_loss_rel:.3g} and checkpointed EMA {cli_moved:.3g} of the one-process run; "
+        f"launches a rank {[r['launches'] for r in ranks]} (expected {per_rank} each)")
+    seeds = [MESH_SEED_START, MESH_SEED_START + 1]
+    if not (e_same and d_same and e_loss <= ENS_RTOL and d_loss <= ENS_RTOL
+            and e_moved <= ENS_MOVE_RTOL and d_moved <= ENS_MOVE_RTOL
+            and sorted(r["removal_seed"] for r in rows) == seeds and len(rows) == 2
+            and cli_loss_rel <= ENS_RTOL and cli_moved <= ENS_MOVE_RTOL
+            and all(np.isfinite(r["eval_loss"]) for r in rows)
+            and all(r["launches"] == per_rank for r in ranks)):
+        raise AssertionError("[mesh] the two ranks disagree with the one-process run")
+    backend, nccl_ok = nccl_group_check(torch, os.path.join(out, "nccl_store"))
+    log(f"[mesh] one NCCL rank ({card}): group backend {backend!r}; gather_members of a CUDA "
+        f"tensor (host copies) and all_mean_ of one on a new group, then a barrier: "
+        f"equal={nccl_ok}")
+    if not (nccl_ok and backend == "cpu:gloo,cuda:nccl"):
+        raise AssertionError("[mesh] an NCCL group does not carry host and CUDA tensors")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4529,15 +4908,18 @@ def run(torch, tmp: str) -> int:
     m = phase_done("[cond] phase", m, tmp)
     peri_counts = check_periphery(torch, np, ops, tmp, card, model_dir)
     m = phase_done("[periphery] phase", m, tmp)
+    mesh_counts = check_mesh(torch, np, ops, tmp, card, dev)
+    m = phase_done("[mesh] phase", m, tmp)
 
-    # launches: the thirteen main paths, sampling, cli.main's scanned and
+    # launches: the fourteen main paths, sampling, cli.main's scanned and
     # per-step loops, training, TRAK, the estimation loop, the sample behaviors,
     # the latent-diffusion workload, the text-to-image tier, the single-model
     # jobs, per-example attribution and local behaviors, workload 1's other
-    # datasets, the prompt-conditional path, and the periphery.
+    # datasets, the prompt-conditional path, the periphery, and members over
+    # ranks (both ranks' launches).
     launches = add_counts(sample_counts, ens_counts, train_counts, trak_counts, pipe_counts,
                           score_counts, ldm_counts, tti_counts_, unlearn_counts, local_counts,
-                          data_counts, cond_counts, peri_counts)
+                          data_counts, cond_counts, peri_counts, mesh_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

@@ -29,9 +29,21 @@ in latent space, and sampling runs the VQ decoder after the denoise loop.
 Runs on CUDA unless ``--device cpu`` is given; on CUDA, float32 means
 float32 (TF32 off in cuDNN convolutions and CUDA matmuls) and cuDNN runs
 deterministic algorithms, so two runs of a step give bit-identical
-gradients (the attention and GroupNorm kernels use no atomics). Not ported yet:
-the device mesh (``--mesh_ensemble``, ``--mesh_data``). ``--bf16`` is the JAX
-CLI's: float32 parameters and optimizer state, bf16 compute.
+gradients (the attention and GroupNorm kernels use no atomics). ``--bf16`` is
+the JAX CLI's: float32 parameters and optimizer state, bf16 compute.
+
+Over several ranks (torchrun, or ranks that `parallel.multihost.spawn`
+started: the group is joined before ``main``), the members are laid out on a
+mesh as the JAX CLI lays them on its devices (``--mesh_ensemble``, default
+the ranks over ``--mesh_data``; the ensemble axis is the gcd of it and the
+members, and one rank gets no mesh): each rank trains, evaluates and samples
+its own members, keyed by their global index, and ``--mesh_data`` > 1
+splits each member's batch over a data row. The members' losses, samples
+and weights are then gathered to rank 0, which alone writes the rows,
+checkpoints and tracker logs: a run over ranks leaves the files and rows of
+a run in one process. Ranks the mesh leaves out own no member. Where the
+batch does not divide ``--mesh_data``, the trainer warns and every rank
+trains every member; rank 0 alone goes on to write.
 
 Usage (smoke, CPU):
     python -m group_attribution_for_diffusion_models_tpu_torch.cli.train_ensemble \\
@@ -42,11 +54,13 @@ Usage (smoke, CPU):
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..attributions.global_scores import (
     calculate_fid_from_features,
@@ -65,10 +79,12 @@ from ..diffusion.schedulers import add_noise, make_schedule
 from ..models.unet2d import REMAT_POLICIES, UNet2D, build_unet, empty_unet
 from ..models.vqvae import make_vq_decode_fn
 from ..parallel.ensemble import EnsembleTrainer, derived_seed
+from ..parallel.mesh import gather_members, make_mesh, world
+from ..parallel.multihost import is_main, maybe_initialize
 from ..training.state import TrainState, make_optimizer, unstack_state
 from ..utils.ckpt import get_max_steps, load_checkpoint, save_checkpoint
-from ..utils.device import resolve_device
 from ..utils.jsonl import append_record, filter_records
+from ..utils.trackers import NullTracker
 from .common import (
     add_common_args,
     as_rgb,
@@ -128,6 +144,11 @@ def parse_args(argv=None):
     parser.add_argument("--eval_t_min", type=int, default=0)
     parser.add_argument("--eval_t_max", type=int, default=None,
                         help="probe-timestep band [min, max)")
+    parser.add_argument("--mesh_ensemble", type=int, default=None,
+                        help="ensemble-axis size over the ranks (default: the ranks over "
+                             "--mesh_data); the gcd with the members is taken")
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="data-axis size: ranks that split each member's batch")
     parser.add_argument("--bf16", action="store_true", default=False,
                         help="bf16 compute with float32 parameters and optimizer state")
     parser.add_argument("--remat", action="store_true", default=False,
@@ -238,7 +259,7 @@ def main(argv=None):
     args = parse_args(argv)
     if args.score != "none" and args.n_samples <= 0:
         raise SystemExit(f"--score {args.score} needs --n_samples > 0")
-    device = resolve_device(args.device)
+    device = maybe_initialize(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -325,10 +346,29 @@ def main(argv=None):
         opt.name, lr=args.lr or opt.lr, weight_decay=opt.weight_decay,
         grad_clip_norm=opt.grad_clip_norm, maximize=args.method in ("ga", "ga_u"),
     )
+
+    n_ranks, rank = world()
+    mesh = None
+    if n_ranks > 1:
+        # The ensemble axis must divide the member count: the gcd with the
+        # budget, surplus ranks left out (the JAX CLI's rule).
+        e_budget = args.mesh_ensemble or (n_ranks // args.mesh_data)
+        e_axis = math.gcd(len(seeds), e_budget)
+        if e_axis * args.mesh_data > 1:
+            mesh = make_mesh((e_axis, args.mesh_data), ("ensemble", "data"),
+                             world_size=min(n_ranks, e_axis * args.mesh_data))
+    if not (mesh.in_mesh if mesh is not None else is_main()):
+        print(f"rank {rank}: no member here (mesh {mesh.shape if mesh else None})")
+        return summary
+    group = mesh.group if mesh is not None else None
+
     decode_fn = None
     if cfg.vqvae is not None:
         # One encode of the whole dataset, shared by every member and cached
-        # for every later call on this outdir.
+        # for every later call on this outdir: rank 0 encodes and writes the
+        # cache, the other ranks read it.
+        if group is not None and not is_main():
+            dist.barrier(group=group)
         t0 = time.perf_counter()
         latents, vqvae, cached = dataset_latents(args, cfg, dataset, device)
         cache = latents_cache_path(args.outdir, args.dataset)
@@ -337,6 +377,8 @@ def main(argv=None):
         summary.update(encode_seconds=time.perf_counter() - t0, latents_cached=cached)
         print(f"latents {train_data.shape} {'read from' if cached else 'encoded to'} {cache} "
               f"in {summary['encode_seconds']:.2f}s")
+        if group is not None and is_main():
+            dist.barrier(group=group)
     else:
         train_data = ((dataset.images + 1.0) * 127.5).round().astype(np.uint8)
     trainer = EnsembleTrainer(
@@ -348,8 +390,13 @@ def main(argv=None):
         batch_size=min(batch_size, min(len(m) for m in member_indices)),
         device=device,
         common_noise=not args.independent_noise,
+        mesh=mesh,
     )
     summary["batch_size"] = trainer.batch_size
+    # The mesh the trainer uses: None where it did not fit, and then every
+    # rank trains every member and rank 0 alone goes on to write.
+    mesh = trainer.mesh
+    members = trainer.members  # this rank's members, by global index
 
     compute_dtype = torch.bfloat16 if args.bf16 else None
 
@@ -363,34 +410,32 @@ def main(argv=None):
         print(f"all members start from {args.load}")
     stacked = trainer.init_state(init_fn, params=params, seed=args.opt_seed)
 
-    tracker = tracker_for(args, f"{args.dataset}_ensemble_{args.method}")
+    tracker = (tracker_for(args, f"{args.dataset}_ensemble_{args.method}") if is_main()
+               else NullTracker())
 
     def log_chunk(metrics, end):
         if args.log_freq > 0:
-            tracker.log({"loss_mean": float(metrics["loss"][-1].mean())}, end)
+            last = gather_members(mesh, [metrics["loss"][-1]])
+            if last is not None:
+                tracker.log({"loss_mean": float(last[0].mean())}, end)
 
     t_start = time.time()
-    losses = np.full(len(seeds), np.nan)
+    losses = torch.full((len(members),), float("nan"))
     if training_steps > 0:
         # Chunks of log_freq steps (one chunk without it), as the JAX CLI scans.
         stacked, metrics = trainer.run_scanned(stacked, training_steps, seed=args.opt_seed,
                                                chunk=args.log_freq or training_steps,
                                                chunk_fn=log_chunk)
-        losses = metrics["loss"][-1].cpu().numpy()
+        losses = metrics["loss"][-1]
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_time = time.time() - t_start
-    if training_steps > 0:
-        # Final log regardless of interval ('0 = only final').
-        tracker.log({"loss_mean": float(np.mean(losses))}, training_steps)
-    # training_steps=0: init-only members (the "null model" y_v0 of the
-    # Shapley efficiency constraint), with NaN losses.
-    tracker.finish()
-    print(f"{len(seeds)} members x {training_steps} steps in {train_time:.1f}s; "
-          f"losses {losses.round(4).tolist()}")
-    summary.update(train_seconds=train_time, losses=losses.tolist())
-    # Each member as a TrainState of its own, for evaluation, sampling and checkpoints.
-    states = [unstack_state(stacked, m) for m in range(len(seeds))]
+    # Each member as a TrainState of its own, for evaluation and sampling;
+    # the members' weights, gathered to rank 0 (host copies), for checkpoints.
+    states = [unstack_state(stacked, i) for i in range(len(members))]
+    names = list(stacked.params)
+    weights = (gather_members(mesh, [stacked.params[n].detach() for n in names] + stacked.ema)
+               if args.save_ckpts else None)
     del stacked
 
     scratch = empty_unet(spec, device=device, compute_dtype=compute_dtype).eval()
@@ -415,26 +460,49 @@ def main(argv=None):
             for state in states:
                 eps = _ema_model(scratch, state)(x_t, t_fixed)
                 eval_losses.append(torch.mean((eps - noise_fixed) ** 2))
-        eval_losses = torch.stack(eval_losses).cpu().numpy()
-        print(f"eval losses: {eval_losses.round(5).tolist()}")
-        summary["eval_losses"] = eval_losses.tolist()
+        eval_losses = torch.stack(eval_losses)
 
     sample_time = 0.0
+    samples = None
     if args.n_samples > 0:
         shape = (args.n_samples, spec.in_channels, spec.sample_size, spec.sample_size)
         t0 = time.time()
         samples = []
-        for m, state in enumerate(states):
+        for m, state in zip(members, states):
             sampler = make_sampler(_ema_model(scratch, state), cfg.scheduler, shape,
                                    device=device,
                                    num_inference_steps=args.num_inference_steps,
                                    kind="ddim", decode_fn=decode_fn)
             gen = torch.Generator(device=device).manual_seed(derived_seed(args.opt_seed, m))
             samples.append(sampler(generator=gen))
-        samples = torch.stack(samples).cpu().numpy()
+        samples = torch.stack(samples)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         sample_time = time.time() - t0
+
+    # Every member's results on rank 0, in member order; the other ranks are done.
+    outs = [x for x in (losses, eval_losses, samples) if x is not None]
+    outs = gather_members(mesh, outs)
+    if outs is None or not is_main():
+        return summary
+    losses = outs.pop(0).numpy()
+    if eval_losses is not None:
+        eval_losses = outs.pop(0).numpy()
+        print(f"eval losses: {eval_losses.round(5).tolist()}")
+        summary["eval_losses"] = eval_losses.tolist()
+    if samples is not None:
+        samples = outs.pop(0).numpy()
         print(f"sampled {samples.shape} in {sample_time:.1f}s")
         summary.update(sample_seconds=sample_time, samples=samples)
+    if training_steps > 0:
+        # Final log regardless of interval ('0 = only final').
+        tracker.log({"loss_mean": float(np.mean(losses))}, training_steps)
+    # training_steps=0: init-only members (the "null model" y_v0 of the
+    # Shapley efficiency constraint), with NaN losses.
+    tracker.finish()
+    print(f"{len(seeds)} members x {training_steps} steps in {train_time:.1f}s; "
+          f"losses {losses.round(4).tolist()}")
+    summary.update(train_seconds=train_time, losses=losses.tolist())
 
     scores = {"fid": None, "is": None}
     scoring_time = 0.0
@@ -469,7 +537,9 @@ def main(argv=None):
         model_dir = member_dir(seed)
         save_removal_indices(model_dir, remaining_idx, removed_idx)
         if args.save_ckpts:
-            member_params, member_ema = states[m].state_dicts()
+            # Copies: a view would save the storage of every member.
+            member_params = {n: w[m].clone() for n, w in zip(names, weights)}
+            member_ema = {n: w[m].clone() for n, w in zip(names, weights[len(names):])}
             save_checkpoint(
                 model_dir, training_steps, member_params, member_ema, remaining_idx,
                 removed_idx, train_time / len(seeds), unet_spec=spec,

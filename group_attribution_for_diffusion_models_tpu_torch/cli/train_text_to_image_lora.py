@@ -36,19 +36,27 @@ text_to_image/train_text_to_image_lora.py:577-1545):
 the channel mean of the images as stand-in latents; any other dataset needs
 per-image file names (``imagenette``, an ArtBench-style folder) and runs at
 miniSD width. Idempotence: a member whose ``lora_weights.npz`` exists is
-skipped. ``--mesh_ensemble`` and the wandb/tensorboard trackers of the JAX
-CLI are not ported.
+skipped. The wandb/tensorboard trackers of the JAX CLI are not ported.
+
+Over several ranks (``parallel.multihost``), ``--mesh_ensemble`` (default:
+the members or the ranks, whichever is fewer; the gcd with the members is
+taken, as in the JAX CLI) splits the stacked members over the ranks: each
+rank loads the frozen base and trains the members of its block, with the
+draws of each keyed by its removal seed; rank 0 gathers the final losses and
+LoRA trees and alone writes the files, rows and tracker logs.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.registry import (
     MINISD_SCHEDULER,
@@ -73,9 +81,11 @@ from ..models.lora import (
 )
 from ..models.unet2d import UNet2D, build_unet, members_forward
 from ..parallel.ensemble import derived_seed, pad_member_indices
+from ..parallel.mesh import gather_members, make_mesh, member_range, world
+from ..parallel.multihost import is_main, maybe_initialize
 from ..training.state import Optimizer, OptState, make_optimizer
-from ..utils.device import resolve_device
 from ..utils.jsonl import append_record
+from ..utils.trackers import NullTracker
 from .common import (
     add_sd_pretrained_args,
     provenance_row,
@@ -145,6 +155,9 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=42,
                         help="seed of the random base U-Net (without --unet_ckpt)")
     parser.add_argument("--log_freq", type=int, default=50)
+    parser.add_argument("--mesh_ensemble", type=int, default=None,
+                        help="split the LoRA members over this many ranks (default: "
+                             "min(num_seeds, ranks); 1 keeps them on one)")
     parser.add_argument("--tracker", type=str, default="none", choices=["none", "jsonl"],
                         help="training-scalar tracker (logs under <outdir>/logs)")
     parser.add_argument("--device", type=str, default="cuda")
@@ -277,7 +290,7 @@ def main(argv=None) -> Dict:
     the latents came from the cache, each step's seconds (all members) and
     seconds per phase (towers, latents, caption embedding, training)."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = maybe_initialize(args.device)
     if args.removal_dist == "counterfactual" and args.num_seeds > 1:
         # Deterministic removal: every member would overwrite one leaf.
         print("counterfactual removal is deterministic; forcing num_seeds=1")
@@ -315,6 +328,21 @@ def main(argv=None) -> Dict:
     seeds = [s for s, _ in pending]
     removals = [r for _, r in pending]
 
+    # The members' blocks over the ranks (the JAX CLI's mesh rule); ranks the
+    # mesh leaves out own no member.
+    n_ranks, rank = world()
+    e_axis = math.gcd(len(seeds), args.mesh_ensemble or min(len(seeds), n_ranks))
+    mesh = (make_mesh((e_axis,), ("ensemble",), world_size=min(n_ranks, e_axis))
+            if e_axis > 1 else None)
+    if not (mesh.in_mesh if mesh is not None else is_main()):
+        print(f"rank {rank}: no member here (mesh {mesh.shape if mesh else None})")
+        return {"seeds": [], "lora_paths": []}
+    local = member_range(mesh, len(seeds))
+    if mesh is not None:
+        print(f"LoRA ensemble over {mesh.size} rank(s); this rank trains seeds "
+              f"{[seeds[m] for m in local]}")
+    group = mesh.group if mesh is not None else None
+
     # --- frozen towers ------------------------------------------------------
     t0 = time.perf_counter()
     model = build_unet(spec, seed=args.seed, device=device)
@@ -337,6 +365,8 @@ def main(argv=None) -> Dict:
 
         cache = os.path.join(args.outdir, "precomputed_emb", "vae_latents.npy")
         tag = {"encoder": weights_tag(None, SD_VAE_SEED), "dataset": args.dataset}
+        if group is not None and not is_main():
+            dist.barrier(group=group)  # rank 0 encodes and writes the cache
         latents_all = cached_latents(cache, len(dataset.images), tag)
         latents_cached = latents_all is not None
         if not latents_cached:
@@ -344,6 +374,8 @@ def main(argv=None) -> Dict:
             latents_all = precompute_latents(vae, dataset.images)
             save_latents(cache, latents_all, tag)
             del vae
+        if group is not None and is_main():
+            dist.barrier(group=group)
     latents = torch.from_numpy(latents_all).permute(0, 3, 1, 2).contiguous().to(device)
     sync()
     seconds["latents"] = time.perf_counter() - t0
@@ -373,12 +405,12 @@ def main(argv=None) -> Dict:
     if args.lora_dir:
         base_tree = load_lora_npz(args.lora_dir, device)
         print(f"LoRA loaded from {args.lora_dir} ({lora_num_params(base_tree)} params)")
-        tree = stack_lora_trees([base_tree] * len(seeds))
+        tree = stack_lora_trees([base_tree] * len(local))
     else:
         tree = stack_lora_trees([
             lora_init(model, args.rank,
-                      generator=torch.Generator(device=device).manual_seed(1000 + s))
-            for s in seeds])
+                      generator=torch.Generator(device=device).manual_seed(1000 + seeds[m]))
+            for m in local])
     for leaf in lora_leaves(tree):
         leaf.requires_grad_(True)
     opt_state = tx.init(lora_leaves(tree))
@@ -391,44 +423,53 @@ def main(argv=None) -> Dict:
             f"--microbatch {args.microbatch} must divide the effective batch {batch} "
             "(the batch is cut into equal accumulation slices)")
     print(f"{len(seeds)} members, subsets of {sizes.tolist()} images, batch {batch}")
+    table = table[local.start:local.stop]
     snr = None
     if args.snr_gamma is not None:
         acp = schedule.alphas_cumprod
         snr = acp / (1.0 - acp)
 
-    tracker = tracker_for(args, f"{args.dataset}_lora_{args.method}")
+    tracker = tracker_for(args, f"{args.dataset}_lora_{args.method}") if is_main() \
+        else NullTracker()
     shape = (batch,) + tuple(latents.shape[1:])
-    losses = torch.zeros(len(seeds), device=device)
+    losses = torch.zeros(len(local), device=device)
     time_rows = []
     sync()
     t_start = time.time()
     for step_i in range(total_steps):
         draws = []
-        for m, seed in enumerate(seeds):
+        for i, m in enumerate(local):
             gen = torch.Generator(device=device).manual_seed(
-                derived_seed(args.opt_seed, step_i, seed))
+                derived_seed(args.opt_seed, step_i, seeds[m]))
             slot = torch.randint(0, int(sizes[m]), (batch,), generator=gen, device=device)
             t = torch.randint(0, sched_spec.num_train_timesteps, (batch,), generator=gen,
                               device=device)
             noise = torch.randn(shape, generator=gen, device=device)
-            draws.append((table[m][slot], t, noise))
+            draws.append((table[i][slot], t, noise))
         idx, t, noise = (torch.stack(x) for x in zip(*draws))
         losses = members_step(model, tree, tx, opt_state, latents, caption_emb, img_artist,
                               idx, t, noise, schedule, snr, args.snr_gamma, args.microbatch)
         if (args.log_freq and (step_i + 1) % args.log_freq == 0) or step_i + 1 == total_steps:
-            vals = [float(v) for v in losses]
-            el = time.time() - t_start
-            print(f"Step[{step_i + 1}/{total_steps}] losses={np.round(vals, 4).tolist()} "
-                  f"{el:.1f}s", flush=True)
-            tracker.log({"loss_mean": float(np.mean(vals)), "elapsed_s": el}, step_i + 1)
+            got = gather_members(mesh, [losses])
+            if got is not None:
+                vals = got[0].tolist()
+                el = time.time() - t_start
+                print(f"Step[{step_i + 1}/{total_steps}] losses={np.round(vals, 4).tolist()} "
+                      f"{el:.1f}s", flush=True)
+                tracker.log({"loss_mean": float(np.mean(vals)), "elapsed_s": el}, step_i + 1)
         sync()
         time_rows.append((step_i, time.time() - t_start))
     train_time = time.time() - t_start
     seconds["train"] = train_time
     tracker.finish()
 
+    # Every member's loss and tree on rank 0, in member order; it alone writes.
+    got = gather_members(mesh, [losses] + lora_leaves(tree))
+    if got is None:
+        return {"seeds": [seeds[m] for m in local], "lora_paths": []}
+    final, leaves = got[0].tolist(), iter(got[1:])
+    tree = {name: {"down": next(leaves), "up": next(leaves)} for name in tree}
     db = args.db or os.path.join(args.outdir, f"{args.dataset}_lora_db.jsonl")
-    final = [float(v) for v in losses]
     paths = []
     for m, seed in enumerate(seeds):
         paths.append(_write_member(args, seed, unstack_lora_tree(tree, m), removals[m],

@@ -21,7 +21,7 @@ member its own gradient, and one optimizer and EMA update covers the stack.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Mapping, Optional
+from typing import Callable, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -141,14 +141,18 @@ def make_train_step(tx: Optimizer, schedule: ScheduleState, spec: SchedulerSpec,
 
 def make_members_step(tx: Optimizer, schedule: ScheduleState,
                       ema_max_decay: float = EMA_MAX_DECAY, ema_inv_gamma: float = 1.0,
-                      ema_power: float = 0.75):
+                      ema_power: float = 0.75,
+                      pmean: Optional[Callable[[List[torch.Tensor]], None]] = None):
     """The step of M stacked members on injected draws:
     `members_step(state, images, timesteps, noise, loss_weights=None) ->
     {"loss", "grad_norm"}`, each (M,) on the device, with `state` an
     `EnsembleState` updated in place and the draws as `members_loss` takes
     them. Each member's gradient is clipped by its own norm; the EMA decay is
     the one `make_train_step` uses (every member is at the same step). The
-    clipped gradients stay in the stacked parameters' `.grad`."""
+    clipped gradients stay in the stacked parameters' `.grad`. `pmean`, where
+    a member's batch is split over ranks, means the gradients and the losses
+    over them in place before the optimizer (the JAX step's ``pmean_axis``),
+    so the clip sees the whole batch's gradient."""
 
     def members_step(state: EnsembleState, images: torch.Tensor, timesteps: torch.Tensor,
                      noise: torch.Tensor, loss_weights: Optional[torch.Tensor] = None):
@@ -161,12 +165,14 @@ def make_members_step(tx: Optimizer, schedule: ScheduleState,
         missing = [n for n, p in state.params.items() if p.grad is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing[:4]} ({len(missing)} in all)")
-        grad_norm = tx.update([p.grad for p in params], state.opt_state, params,
-                              members=state.num_members)
+        grads, losses = [p.grad for p in params], losses.detach()
+        if pmean is not None:
+            pmean(grads + [losses])
+        grad_norm = tx.update(grads, state.opt_state, params, members=state.num_members)
         state.step += 1
         decay = ema_decay_schedule(state.step, ema_max_decay, False, ema_inv_gamma, ema_power)
         ema_update(state.ema, params, decay)
-        metrics = {"loss": losses.detach()}
+        metrics = {"loss": losses}
         if grad_norm is not None:
             metrics["grad_norm"] = grad_norm
         return metrics

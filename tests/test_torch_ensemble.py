@@ -198,9 +198,9 @@ def _run_port(outdir, *extra):
         "--outdir", str(outdir), "--device", "cpu", *extra])
 
 
-# Flags of the JAX CLI this slice leaves out, each with its ROADMAP queue
-# item; the port adds --device.
-LEFT_OUT = {"mesh_ensemble", "mesh_data"}
+# Flags of the JAX CLI the port leaves out (none since the mesh came); the
+# port adds --device.
+LEFT_OUT: set = set()
 
 
 def test_train_ensemble_matches_the_jax_cli(tmp_path, monkeypatch):

@@ -84,8 +84,15 @@ COND_SLICE = [
 ]
 
 
+# Members over ranks: the mesh, the launch, and what runs on them.
+MESH_SLICE = [
+    "parallel/mesh.py", "parallel/multihost.py", "parallel/ensemble.py",
+    "cli/train_ensemble.py", "cli/train_text_to_image_lora.py",
+]
+
+
 @pytest.mark.parametrize("module", SCORING_SLICE + SINGLE_MODEL_SLICE + LOCAL_SLICE
-                         + COND_SLICE)
+                         + COND_SLICE + MESH_SLICE)
 def test_scoring_slice_modules_import_no_jax(module):
     path = os.path.join(PORT, module)
     assert path in _port_files()
