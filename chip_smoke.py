@@ -205,7 +205,7 @@ Phases (one line each; any failure raises and exits non-zero):
     U-Net's attention (D = 256 at 8x8; its D = 512 mid block takes the plain
     route) and every GroupNorm of its pass against the plain versions, then
     ``cli.main`` retrain on mnist (5 steps at batch 64) and
-    ``cli.generate_samples.main`` (16 x 20 DDIM steps, 32x32 gray PNGs).
+    ``cli.generate_samples.main`` (16 x 10 DDIM steps, 32x32 gray PNGs).
 17. cond: the prompt-conditional path of ``cli.main``. On the synthetic
     conditional configs through the CLI: an LDMBert ``.npz`` and a
     ``vocab.txt`` the phase writes, the per-step loop and ``--scan_chunk``,
@@ -231,7 +231,7 @@ Phases (one line each; any failure raises and exits non-zero):
     launch counters, and its device total is positive and within the call's
     wall clock. ``cli.convert_weights --kind unet`` of phase 5's checkpoint as
     a diffusers state dict; ``generate_samples`` from it and from the
-    original (16 x 10 DDIM steps) write byte-equal PNGs. ``runtime_report``
+    original (16 x 5 DDIM steps) write byte-equal PNGs. ``runtime_report``
     and ``sweep_report`` over [pipeline]'s and [unlearn]'s DBs;
     ``experiments find-incomplete`` finds their checkpointed members
     complete and the pipeline's uncheckpointed ones missing. The native JSONL
@@ -254,6 +254,17 @@ Phases (one line each; any failure raises and exits non-zero):
     plain versions; each rank's launches added to the kernels line. Last,
     this process as one NCCL rank: a gather of CUDA tensors (host copies,
     over the group's gloo) and a mean of them (NCCL) on a new group.
+20. scripts: the experiment scripts' twins on the card (no DEVICE) at smoke
+    scale in the run directory, started before [unlearn] and run beside it:
+    ``scripts/refscale_attribution_torch.sh`` -> ``refscale_sparseft_torch.sh``
+    -> ``refscale_prefix_curve_torch.py`` on the retrain and the sparse-FT
+    fits. The chain must exit 0 with a finite LDS in both pipelines' summary
+    rows and both curves; each CLI process appends its launches to
+    ``GADM_LAUNCH_LOG`` as it exits, and they join the kernels line. Then
+    B3/B4 at every GroupNorm shape of the protocols' synthetic U-Nets with 16
+    members stacked at batch 64 (the (8, 16) one timed beside its bound,
+    plain and library times), and B1/B2 at the ``_big`` one's attention
+    (64, 256, 256, 1, 64), against their plain versions.
 
 Each main path runs with the kernels' launch counters reset just before and
 read just after, and asserts the counts the code implies; the plain
@@ -303,7 +314,7 @@ TRAIN_MEMBERS, TRAIN_STEPS, TRAIN_BATCH = 8, 3, 64
 # Shapley seeds 22..29 keep 65 to 49,999 of the 50,000 images, so the
 # members train at batch 64; seed 7, for one, keeps 3.
 TRAIN_SEED_START = 22
-TRAIN_SAMPLES, TRAIN_SAMPLE_STEPS = 16, 10
+TRAIN_SAMPLES, TRAIN_SAMPLE_STEPS = 16, 5
 CIFAR_TRAIN_IMAGES = 50_000  # the CIFAR-10 training set's size, 5 batches
 # JL projection, kernel vs plain: f32 sums of D terms in other orders (the
 # kernel's chunks of D, the plain version's tiles), held per row to
@@ -467,7 +478,7 @@ TTI_SHAPLEY_MICROBATCH = 32
 # compute_model_behaviors: one timed call (reference LoRA against a subset LoRA),
 # then a smaller call for every member and each anchor.
 TTI_SCORE_SAMPLES, TTI_SCORE_STEPS, TTI_SCORE_NOISES = 16, 5, 3
-TTI_MEMBER_SAMPLES, TTI_MEMBER_STEPS, TTI_MEMBER_NOISES = 2, 5, 1
+TTI_MEMBER_SAMPLES, TTI_MEMBER_STEPS, TTI_MEMBER_NOISES = 2, 3, 1
 # grad_features_tti: the train source timed on the first TTI_TRAK_EXAMPLES images
 # (2 artists: the stand-in is in name order), then on every image at one timestep,
 # so that traks' attributions cover the 16 artists for baseline_lds.
@@ -533,7 +544,7 @@ LOC_GN_SKIPPED = 7
 # generate_samples 16 x 20 steps.
 CIFAR100_TRAIN_IMAGES, MNIST_TRAIN_IMAGES = 50_000, 60_000
 DATA_RESNET_CHECK, DATA_RESNET_BATCH = 8, 256
-DATA_MNIST_STEPS, DATA_MNIST_BATCH, DATA_MNIST_SAMPLES, DATA_MNIST_SAMPLE_STEPS = 5, 64, 16, 20
+DATA_MNIST_STEPS, DATA_MNIST_BATCH, DATA_MNIST_SAMPLES, DATA_MNIST_SAMPLE_STEPS = 5, 64, 16, 10
 MNIST_ATTN_SHAPES = [(64, 64, 64, 1, 256)]  # the 8x8 attention, one head of 256, batch 64
 
 # [cond]: the prompt-conditional path. cli.main COND_CLI_STEPS steps on each
@@ -547,16 +558,30 @@ MNIST_ATTN_SHAPES = [(64, 64, 64, 1, 256)]  # the 8x8 attention, one head of 256
 COND_CLI_STEPS, COND_CLI_CHUNK = 4, 2
 COND_BATCH, COND_WARM, COND_STEPS, COND_REF_BATCH = 64, 1, 3, 1
 COND_TOWER_DEPTH, COND_TOWER_ATOL = 4, 1e-4
-COND_GRID, COND_GRID_STEPS = 10, 10
-COND_PIPE_SAMPLES, COND_PIPE_STEPS = 4, 10
+COND_GRID, COND_GRID_STEPS = 10, 5
+COND_PIPE_SAMPLES, COND_PIPE_STEPS = 4, 5
 # [periphery]: cli.main under --profile_dir at PERI_BATCH for PERI_STEPS steps (the
 # table's PERI_TOP rows printed); generate_samples of PERI_SAMPLES x PERI_SAMPLE_STEPS
 # DDIM steps from the converted checkpoint and from the original; the native image
 # loader held against PIL at the CelebA stand-in's size and at PERI_RESIZE (|d| <=
 # PERI_IMAGE_ATOL, the JAX package's test bound), each reader timed PERI_REPEATS times.
 PERI_BATCH, PERI_STEPS, PERI_TOP = 64, 3, 15
-PERI_SAMPLES, PERI_SAMPLE_STEPS = 16, 10
+PERI_SAMPLES, PERI_SAMPLE_STEPS = 16, 5
 PERI_RESIZE, PERI_IMAGE_ATOL, PERI_REPEATS = 64, 1, 3
+# [scripts]: the experiment scripts' twins on the card, at smoke scale, in the run
+# directory: refscale_attribution_torch.sh -> refscale_sparseft_torch.sh ->
+# refscale_prefix_curve_torch.py (both curves), one chain of subprocesses started
+# beside [unlearn] (each CLI writes its launches to GADM_LAUNCH_LOG as it exits);
+# SCRIPTS_TIMEOUT bounds the chain. Then B3/B4 at every GroupNorm shape of the
+# protocols' synthetic U-Nets with SCRIPTS_MEMBERS members stacked at batch 64 (the
+# (8, 16) one timed with plain and library times, the `_big` one held), and B1/B2 at
+# the `_big` U-Net's 16x16 attention, one head of 64, at batch 64.
+SCRIPTS_ENV = dict(DATASET="synthetic_64x8_tpl_mix", FIT="8", TEST="6", STEPS="2",
+                   SPARSE_STEPS="2", OMP_NUM_THREADS="1")
+SCRIPTS_TIMEOUT = 600
+SCRIPTS_DATASET = "synthetic_2048x32_c32_tpl_mix_sizes"  # the refscale protocol's
+SCRIPTS_MEMBERS = 16  # refscale's --chunk_size: members a GroupNorm launch folds into its batch
+SCRIPTS_ATTN = [(64, 256, 256, 1, 64)]
 # WoodFisher card vs CPU at CIFAR width: k_vec from 4 images (2 batches of 2) and
 # injected draws; the change k - v within WF_RTOL of the CPU's in L2 norm (two
 # gradients of 35.7M entries, each TRAIN_STEP_RTOL-close, through two dot products).
@@ -1081,7 +1106,7 @@ def _census(torch, model, run) -> list:
 
 def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=None,
                     batch=GN_CENSUS_BATCH, eps=1e-6, dtypes=("float32", "bfloat16"),
-                    library=False, what="U-Net pass"):
+                    library=False, what="U-Net pass", groups=32):
     """Every GroupNorm shape of a pass (`census`, default the CIFAR U-Net's
     GN_CENSUS) at `batch` and `eps`, in `dtypes`: both kernels held against
     their plain versions (TOL, SUM_TOL) and repeated bit for bit, then timed
@@ -1091,7 +1116,8 @@ def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=Non
     forward and autograd backward and both plain versions, event-timed. Totals per pass forward and backward, weighted by launches,
     beside their bytes bounds (x read and y written; x and dy read and dx
     written). A shape already in `cache` (a dict this fills) is not held or
-    timed again. Returns {dtype: totals}, each with its shapes' rows."""
+    timed again. `groups`: the pass's GroupNorm groups (the CIFAR U-Net's 32).
+    Returns {dtype: totals}, each with its shapes' rows."""
     cache = {} if cache is None else cache
     out = {}
     for dtype in (getattr(torch, n) for n in dtypes):
@@ -1100,15 +1126,16 @@ def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=Non
                    bwd_bound_ms=0.0, launches=0)
         rows = []
         for c, h, w, silu, launches in census:
-            key = (batch, c, h, w, silu, eps, name)
+            key = (batch, c, h, w, silu, eps, name, groups)
             if key not in cache:
                 cache[key] = _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name,
-                                              batch, eps, library)
+                                              batch, eps, library, groups)
                 row = cache[key]
                 lib = (f"; library ms forward={row['lib_fwd_ms']:.4f} backward="
                        f"{row['lib_bwd_ms']:.4f}; plain ms forward={row['plain_fwd_ms']:.4f} "
                        f"backward={row['plain_bwd_ms']:.4f}" if library else "")
-                log(f"[{label}] group_norm {(batch, c, h, w)} G=32 cpg={c // 32} eps={eps} "
+                log(f"[{label}] group_norm {(batch, c, h, w)} G={groups} cpg={c // groups} "
+                    f"eps={eps} "
                     f"silu={silu} {name} x{launches}: max_abs_err out={row['out_err']:.3g} "
                     f"dx={row['dx_err']:.3g} (tol {TOL[name]}), mean/rstd/partials="
                     f"{row['stat_err']:.3g}, bitwise repeatable=True; device ms: forward="
@@ -1127,9 +1154,9 @@ def check_gn_census(torch, ops, dev, census=GN_CENSUS, label="census", cache=Non
     return out
 
 
-def hold_gn_shape(torch, ops, dev, shape, silu, dtype, name, eps=1e-6):
-    """Both GroupNorm kernels at `shape` against their plain versions (TOL,
-    SUM_TOL) and repeated bit for bit; raises where they disagree. Returns
+def hold_gn_shape(torch, ops, dev, shape, silu, dtype, name, eps=1e-6, groups=32):
+    """Both GroupNorm kernels at `shape` (`groups` groups) against their plain
+    versions (TOL, SUM_TOL) and repeated bit for bit; raises where they disagree. Returns
     (x, gamma, beta, dy, forward args, backward args, the checks)."""
     c = shape[1]
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1137,9 +1164,9 @@ def hold_gn_shape(torch, ops, dev, shape, silu, dtype, name, eps=1e-6):
     gamma = torch.randn(c, generator=g, device=dev) + 1
     beta = torch.randn(c, generator=g, device=dev)
     dy = torch.randn(shape, generator=g, device=dev).to(dtype)
-    args = (x, gamma, beta, 32, eps, silu, dtype)
+    args = (x, gamma, beta, groups, eps, silu, dtype)
     got, want = ops.group_norm_kernel(*args), ops.group_norm_silu_plain(*args)
-    bargs = (x, dy, gamma, beta, want[1], want[2], 32, silu)
+    bargs = (x, dy, gamma, beta, want[1], want[2], groups, silu)
     got_b = gn_bwd(ops, *bargs)
     want_b = ops.group_norm_silu_bwd_plain(*bargs)
     torch.cuda.synchronize()
@@ -1155,16 +1182,16 @@ def hold_gn_shape(torch, ops, dev, shape, silu, dtype, name, eps=1e-6):
 
 
 def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name, batch=GN_CENSUS_BATCH,
-                     eps=1e-6, library=False) -> dict:
+                     eps=1e-6, library=False, groups=32) -> dict:
     """One census shape: both kernels held and repeated, then timed."""
     import torch.nn.functional as F
 
     x, gamma, beta, dy, args, bargs, checks = hold_gn_shape(
-        torch, ops, dev, (batch, c, h, w), silu, dtype, name, eps)
+        torch, ops, dev, (batch, c, h, w), silu, dtype, name, eps, groups)
     fwd = device_ms(torch, lambda: ops.group_norm_kernel(*args))
     bwd_kernel = device_ms(torch, lambda: ops.group_norm_bwd_kernel(*bargs))
     xr, gr, br = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
-    y = ops.group_norm_silu(xr, gr, br, groups=32, eps=eps, silu=silu)
+    y = ops.group_norm_silu(xr, gr, br, groups=groups, eps=eps, silu=silu)
     bwd = device_ms(torch, lambda: torch.autograd.grad(y, (xr, gr, br), dy, retain_graph=True))
     nbytes = x.numel() * x.element_size()
     row = dict(out_err=checks[0][0], dx_err=checks[1][0],
@@ -1175,7 +1202,7 @@ def _gn_census_shape(torch, ops, dev, c, h, w, silu, dtype, name, batch=GN_CENSU
         del y
 
         def lib(xx, gg, bb):
-            yy = F.group_norm(xx, 32, gg.to(dtype), bb.to(dtype), eps)
+            yy = F.group_norm(xx, groups, gg.to(dtype), bb.to(dtype), eps)
             return F.silu(yy) if silu else yy
 
         # Event-timed: a trace can drop one of a library call's several kernels.
@@ -4726,6 +4753,120 @@ def check_mesh(torch, np, ops, root: str, card: str, dev) -> dict:
     return launches
 
 
+SCRIPTS_CHAIN = """set -euo pipefail
+bash scripts/refscale_attribution_torch.sh
+bash scripts/refscale_sparseft_torch.sh
+db="$OUT/${DATASET}_pipeline_db.jsonl"
+python scripts/refscale_prefix_curve_torch.py "$db" "$DATASET" "$STEPS" retrain \\
+  --out "$OUT/curve_retrain.json"
+python scripts/refscale_prefix_curve_torch.py "$db" "$DATASET" "$SPARSE_STEPS" \\
+  prune_fine_tune --out "$OUT/curve_prune_fine_tune.json"
+"""
+
+
+def start_scripts(tmp: str, started: list) -> dict:
+    """Start [scripts]' chain of the twins in the background on the card (no
+    DEVICE), its output in <tmp>/scripts/log; the Popen joins `started`,
+    which main stops. Returns the chain's handle for `check_scripts`."""
+    import threading
+
+    out = os.path.join(tmp, "scripts")
+    os.makedirs(out)
+    env = {k: v for k, v in os.environ.items() if k != "DEVICE"}
+    env.update(SCRIPTS_ENV, OUT=out, GADM_LAUNCH_LOG=os.path.join(out, "launches.jsonl"),
+               PATH=os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", ""))
+    with open(os.path.join(out, "log"), "w") as f:
+        proc = subprocess.Popen(["bash", "-c", SCRIPTS_CHAIN], env=env, stdout=f,
+                                stderr=subprocess.STDOUT, start_new_session=True,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    started.append(proc)
+    chain = {"proc": proc, "out": out, "start": time.perf_counter()}
+
+    def wait():
+        proc.wait()
+        chain["end"] = time.perf_counter()
+
+    chain["waiter"] = threading.Thread(target=wait, daemon=True)
+    chain["waiter"].start()
+    return chain
+
+
+def stop(proc) -> None:
+    """End a process group that `start_scripts` started, if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait(timeout=60)
+
+
+def check_chain(ops, card: str, chain: dict) -> dict:
+    """Waits for [scripts]' chain, which must exit 0 with a finite LDS in both
+    pipelines' summary rows and both curves; returns the launches its CLIs
+    logged, summed."""
+    chain["waiter"].join(SCRIPTS_TIMEOUT - (time.perf_counter() - chain["start"]))
+    proc, out = chain["proc"], chain["out"]
+    with open(os.path.join(out, "log")) as f:
+        tail = f.read()[-3000:]
+    if proc.poll() is None or proc.returncode != 0:
+        raise AssertionError(f"[scripts] the chain of twins ended with {proc.returncode} "
+                             f"(None: still running at {SCRIPTS_TIMEOUT} s):\n{tail}")
+    db = os.path.join(out, f"{SCRIPTS_ENV['DATASET']}_pipeline_db.jsonl")
+    with open(db) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    lds = {r["exp_name"]: r["lds_mean"] for r in rows if "lds_mean" in r}
+    curves = {}
+    for method in ("retrain", "prune_fine_tune"):
+        with open(os.path.join(out, f"curve_{method}.json")) as f:
+            curves[method] = json.load(f)["curve"][-1]["lds"]
+    launches = {k: 0 for k in ops.launch_counts()}
+    with open(os.path.join(out, "launches.jsonl")) as f:
+        logged = [json.loads(line) for line in f if line.strip()]
+    for rec in logged:
+        for k, n in rec["launches"].items():
+            launches[k] += n
+    log(f"[scripts] refscale_attribution_torch.sh -> refscale_sparseft_torch.sh -> "
+        f"refscale_prefix_curve_torch.py x2 on {card} ({SCRIPTS_ENV['DATASET']}, FIT "
+        f"{SCRIPTS_ENV['FIT']}, TEST {SCRIPTS_ENV['TEST']}, {SCRIPTS_ENV['STEPS']} retrain and "
+        f"{SCRIPTS_ENV['SPARSE_STEPS']} sparse steps): exit 0 in "
+        f"{chain['end'] - chain['start']:.1f} s beside [unlearn]; LDS {lds}, curves' last "
+        f"LDS {curves}; {len(logged)} processes' launches {launches}")
+    if not (set(lds) == {"shapley_pipeline", "sparseft_pipeline"}
+            and all(math.isfinite(v) for v in (*lds.values(), *curves.values()))):
+        raise AssertionError(f"[scripts] no finite LDS in both summary rows and curves:\n{tail}")
+    if not (launches["group_norm_fwd"] and launches["group_norm_bwd"]):
+        raise AssertionError(f"[scripts] the twins launched no GroupNorm kernel: {launches}")
+    return launches
+
+
+def check_scripts(torch, F, ops, dev, card: str, chain: dict) -> dict:
+    """[scripts]: the chain (`check_chain`), then the kernels at the
+    protocols' shapes against their plain versions. Returns the chain's
+    launches."""
+    from group_attribution_for_diffusion_models_tpu_torch.cli.common import config_for
+
+    launches = check_chain(ops, card, chain)
+    for dataset, timed in ((SCRIPTS_DATASET, True), (SCRIPTS_DATASET + "_big", False)):
+        spec = config_for(dataset).unet
+        census = gn_census_of(torch, spec)
+        if timed:
+            check_gn_census(torch, ops, dev, census, label="scripts",
+                            batch=SCRIPTS_MEMBERS * 64, eps=spec.norm_eps,
+                            dtypes=("float32",), library=True, groups=spec.norm_num_groups,
+                            what=f"{dataset} U-Net pass of {SCRIPTS_MEMBERS} stacked members")
+            continue
+        for c, h, w, silu, n in census:
+            checks = hold_gn_shape(torch, ops, dev, (SCRIPTS_MEMBERS * 64, c, h, w), silu,
+                                   torch.float32, "float32", spec.norm_eps,
+                                   spec.norm_num_groups)[-1]
+            log(f"[scripts] group_norm {(SCRIPTS_MEMBERS * 64, c, h, w)} "
+                f"G={spec.norm_num_groups} silu={silu} float32 x{n} ({dataset}): held, max "
+                f"abs err {max(e for e, _ in checks):.3g}, bitwise repeatable")
+    check_attention(torch, F, ops, dev, timed_shapes=SCRIPTS_ATTN, held=[], label="scripts",
+                    dtypes=("float32",))
+    check_attention_bwd(torch, F, ops, dev, timed_shapes=SCRIPTS_ATTN, held=[],
+                        label="scripts", dtypes=("float32",))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4734,10 +4875,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return run(torch, tmp)
+        started = []
+        try:
+            return run(torch, tmp, started)
+        finally:
+            for proc in started:
+                stop(proc)
 
 
-def run(torch, tmp: str) -> int:
+def run(torch, tmp: str, started: list) -> int:
     import numpy as np
 
     from concurrent.futures import ThreadPoolExecutor
@@ -4897,6 +5043,7 @@ def run(torch, tmp: str) -> int:
     m = phase_done("[ldm] phase", m, tmp)
     tti_counts_ = check_tti(torch, np, ops, tmp, card, dev)
     m = phase_done("[tti] phase", m, tmp)
+    chain = start_scripts(tmp, started)
     unlearn_counts = check_unlearn(torch, np, ops, tmp, card, dev, os.path.join(
         tmp, "ldm", "celeba", "vqvae", "vqvae_weights.npy"))
     m = phase_done("[unlearn] phase", m, tmp)
@@ -4910,16 +5057,19 @@ def run(torch, tmp: str) -> int:
     m = phase_done("[periphery] phase", m, tmp)
     mesh_counts = check_mesh(torch, np, ops, tmp, card, dev)
     m = phase_done("[mesh] phase", m, tmp)
+    scripts_counts = check_scripts(torch, F, ops, dev, card, chain)
+    m = phase_done("[scripts] phase", m, tmp)
 
-    # launches: the fourteen main paths, sampling, cli.main's scanned and
+    # launches: the fifteen main paths, sampling, cli.main's scanned and
     # per-step loops, training, TRAK, the estimation loop, the sample behaviors,
     # the latent-diffusion workload, the text-to-image tier, the single-model
     # jobs, per-example attribution and local behaviors, workload 1's other
-    # datasets, the prompt-conditional path, the periphery, and members over
-    # ranks (both ranks' launches).
+    # datasets, the prompt-conditional path, the periphery, members over
+    # ranks (both ranks' launches), and the experiment scripts' twins (their
+    # CLI processes' launches).
     launches = add_counts(sample_counts, ens_counts, train_counts, trak_counts, pipe_counts,
                           score_counts, ldm_counts, tti_counts_, unlearn_counts, local_counts,
-                          data_counts, cond_counts, peri_counts, mesh_counts)
+                          data_counts, cond_counts, peri_counts, mesh_counts, scripts_counts)
     main_attn_bwd = attn_bwd_rows[(64, 256, 256, 1, 256, "float32")]
     src = "group_attribution_for_diffusion_models_tpu_torch/csrc/"
     ref = "group_attribution_for_diffusion_models_tpu/ops/"

@@ -27,13 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...models.layers import TRUNC_STD, lecun_init_  # noqa: F401
 from ...utils.ckpt import weights_tag
 from ...utils.device import resolve_device
-
-# Standard deviation of a unit normal truncated to [-2, 2]: flax's
-# variance_scaling divides its scale by it, so the truncated draw keeps the
-# variance asked for.
-TRUNC_STD = 0.87962566103423978
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -209,24 +205,6 @@ class InceptionV3(nn.Module):
             x = block(x)
         pool3 = x.mean(dim=(2, 3))
         return {"pool3": pool3, "logits": self.fc(pool3)}
-
-
-def lecun_init_(module: nn.Module, generator: torch.Generator, conv_gain: float = 1.0) -> None:
-    """flax's default init, drawn from `generator` in module order: every
-    conv and dense kernel from a normal truncated at two standard deviations
-    with std sqrt(1 / fan_in) / TRUNC_STD (lecun_normal), conv kernels times
-    `conv_gain`; biases 0."""
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / TRUNC_STD
-            with torch.no_grad():
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                if isinstance(m, nn.Conv2d):
-                    m.weight.mul_(conv_gain)
-                if m.bias is not None:
-                    m.bias.zero_()
 
 
 def inception_tag(weights_path: Optional[str] = None, seed: int = 0) -> str:

@@ -500,7 +500,11 @@ def main(argv=None):
     # training_steps=0: init-only members (the "null model" y_v0 of the
     # Shapley efficiency constraint), with NaN losses.
     tracker.finish()
-    print(f"{len(seeds)} members x {training_steps} steps in {train_time:.1f}s; "
+    # The process's peak so far: the stacked members' training, their
+    # evaluation and sampling.
+    peak = (f", peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if device.type == "cuda" else "")
+    print(f"{len(seeds)} members x {training_steps} steps in {train_time:.1f}s{peak}; "
           f"losses {losses.round(4).tolist()}")
     summary.update(train_seconds=train_time, losses=losses.tolist())
 

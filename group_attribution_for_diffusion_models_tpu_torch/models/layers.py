@@ -46,6 +46,30 @@ def sinusoidal_embedding(
     return emb
 
 
+# Standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides its scale by it, so the truncated draw keeps the
+# variance asked for.
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_init_(module: nn.Module, generator: torch.Generator, conv_gain: float = 1.0) -> None:
+    """flax's default init, drawn from `generator` in module order: every
+    conv and dense kernel from a normal truncated at two standard deviations
+    with std sqrt(1 / fan_in) / TRUNC_STD (lecun_normal), conv kernels times
+    `conv_gain`; biases 0."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+            with torch.no_grad():
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if isinstance(m, nn.Conv2d):
+                    m.weight.mul_(conv_gain)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
 class LoRADense(nn.Linear):
     """Linear layer with an optional LoRA side branch, as the JAX module:
     y = x W^T + b + (x @ lora_down) @ lora_up when a (in, r) `lora_down` and a

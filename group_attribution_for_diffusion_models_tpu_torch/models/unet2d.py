@@ -56,6 +56,7 @@ from .layers import (
     SpatialTransformer,
     TimestepEmbedding,
     Upsample,
+    lecun_init_,
     sinusoidal_embedding,
 )
 
@@ -305,14 +306,25 @@ def empty_unet(spec: UNetSpec, device="cpu", **kwargs) -> UNet2D:
 def build_unet(spec: UNetSpec, seed: int, remat: bool = False,
                compute_dtype: Optional[torch.dtype] = None,
                remat_policy: Optional[str] = None, device="cpu") -> UNet2D:
-    """A UNet2D with torch's default initialisation drawn from `seed`, without
-    touching the caller's global random state. With a CUDA `device` the
-    parameters are made and drawn there, from the card's generator (other
-    values than the CPU's for one seed; miniSD's 860M parameters take
-    seconds to draw on the CPU)."""
+    """A UNet2D with the JAX package's initialisation, flax's defaults (every
+    convolution and dense kernel lecun_normal, their biases 0, every norm at
+    scale 1 and bias 0), drawn from `seed` in module order by a generator of
+    its own: the caller's global random state stays where it was. torch's
+    default (kaiming-uniform kernels, a third of lecun's variance, and
+    uniform biases) gave a null model of another eval loss and trained to
+    another one. With a CUDA `device` the parameters are made and drawn
+    there, from the card's generator (other values than the CPU's for one
+    seed; miniSD's 860M parameters take seconds to draw on the CPU)."""
     device = torch.device(device)
-    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
-        torch.manual_seed(seed)
-        with device:
-            return UNet2D(spec, remat=remat, compute_dtype=compute_dtype,
-                          remat_policy=remat_policy)
+    model = empty_unet(spec, device=device, remat=remat, compute_dtype=compute_dtype,
+                       remat_policy=remat_policy)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (GroupNormSiLU, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif (not isinstance(m, (nn.Conv2d, nn.Linear))
+                  and any(True for _ in m.parameters(recurse=False))):
+                raise TypeError(f"build_unet has no initialisation for {type(m).__name__}")
+    lecun_init_(model, torch.Generator(device=device).manual_seed(seed))
+    return model

@@ -1,3 +1,17 @@
+"""The hand-written CUDA kernels' wrappers, their plain versions and launch
+counts.
+
+A process started with ``GADM_LAUNCH_LOG=<file>`` in its environment appends
+one JSON line to that file as it exits: its pid, argv and `launch_counts`. A
+parent of subprocesses (``chip_smoke.py``'s ``[scripts]`` phase runs the
+experiment scripts' CLIs) reads their launches from it.
+"""
+
+import atexit
+import json
+import os
+import sys
+
 from .attention import (  # noqa: F401
     attention_bwd_dkv,
     attention_bwd_dkv_plain,
@@ -54,3 +68,16 @@ def launch_counts() -> dict:
 def route_counts() -> dict:
     """Calls of each plain route on the card, by route."""
     return {name: fn.launches for name, fn in PLAIN_ROUTES.items()}
+
+
+LAUNCH_LOG_ENV = "GADM_LAUNCH_LOG"
+
+
+def _append_launch_log(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv,
+                            "launches": launch_counts()}) + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_append_launch_log, os.environ[LAUNCH_LOG_ENV])

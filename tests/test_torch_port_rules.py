@@ -9,6 +9,7 @@ the kernel build (ops/_build.py) is driven here with a stand-in nvcc.
 
 import ast
 import os
+import re
 import stat
 
 import pytest
@@ -97,6 +98,36 @@ def test_scoring_slice_modules_import_no_jax(module):
     path = os.path.join(PORT, module)
     assert path in _port_files()
     assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+# The experiment scripts' twins and the protocol runs' runner and recorder:
+# they drive the port alone.
+SCRIPT_TWINS_PY = ["refscale_prefix_curve_torch.py", "protocol_record_torch.py"]
+SCRIPT_TWINS_SH = [
+    "refscale_attribution_torch.sh", "refscale_sparseft_torch.sh", "refscale_fid_torch.sh",
+    "groundtruth_convergence_demo_torch.sh", "sketch_quality_realscale_torch.sh",
+    "pixel_quality_demo_torch.sh", "latent_quality_demo_torch.sh",
+    "pruning_ratio_sweep_torch.sh", "protocol_runs_torch.sh",
+]
+
+
+def test_every_scripts_twin_is_checked():
+    found = sorted(n for n in os.listdir(os.path.join(REPO, "scripts"))
+                   if n.endswith(("_torch.py", "_torch.sh")))
+    assert found == sorted(SCRIPT_TWINS_PY + SCRIPT_TWINS_SH)
+
+
+@pytest.mark.parametrize("name", SCRIPT_TWINS_PY)
+def test_scripts_twin_imports_no_jax(name):
+    assert not set(_imported_roots(os.path.join(REPO, "scripts", name))) & FORBIDDEN
+
+
+@pytest.mark.parametrize("name", SCRIPT_TWINS_SH)
+def test_shell_twin_names_only_the_port(name):
+    with open(os.path.join(REPO, "scripts", name)) as f:
+        text = f.read()
+    named = set(re.findall(r"group_attribution_for_diffusion_models_tpu\w*", text))
+    assert named == {"group_attribution_for_diffusion_models_tpu_torch"}
 
 
 def test_cuda_request_without_cuda_raises():
