@@ -1,0 +1,7 @@
+"""host_ms_per_step.sample: host milliseconds to enqueue one denoise step, from the benchmark's spans around each call into the step or model (no synchronise). Moves images_per_s."""
+
+from benchlib import readers
+
+
+def read(r: readers.Readings):
+    return readers.host_ms_per_unit(r)
